@@ -1,0 +1,20 @@
+"""mamba2-370m [ssm]: 48L d_model=1024, attention-free, vocab=50280,
+ssm_state=128, SSD (state-space duality) [arXiv:2405.21060]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-370m",
+    family="ssm",
+    n_layers=48,
+    d_model=1024,
+    n_heads=0,
+    n_kv_heads=0,
+    d_ff=0,                 # pure Mamba blocks, no MLP channel mixer
+    vocab=50_280,
+    attn_every=0,           # attention-free
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    ssm_chunk=256,
+    source="arXiv:2405.21060",
+)

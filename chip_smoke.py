@@ -5,20 +5,24 @@ check it end to end.
     python3 chip_smoke.py [--out DIR]
 
 Phases, one result line each:
-  build     nvcc builds the kernels from src/repro_torch/csrc (or finds them built)
-  kernels   K1 relay_assemble, K2 decode_attention, K3 flash_attention, each held
-            against its plain PyTorch version on the card at the main path's
-            shapes, and timed beside its bound, the plain version and one
-            PyTorch library call
-  transfer  multipath_device_put / _get of a 1 GiB pinned bf16 tensor, bit-exact,
-            over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
-  serve     the main path: TinyLlama-1.1B at full width in bf16 (random weights
-            from a seed), a WeightManager sleep/wake round trip, then a
-            FunctionalServer answering 4 requests with a prefix hit on the repeat
+  build      nvcc builds the kernels from src/repro_torch/csrc (or finds them built)
+  kernels    K1 relay_assemble, K2 decode_attention, K3 flash_attention and
+             K4 ssd_chunk, each held against its plain PyTorch version on the
+             card at the main path's shapes (and at rows that see no key, a
+             ragged chunk, two B/C groups), and timed beside its bound, the
+             plain version and one PyTorch library call where there is one
+  transfer   multipath_device_put / _get of a 1 GiB pinned bf16 tensor, bit-exact,
+             over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
+  serve      the dense path: TinyLlama-1.1B at full width in bf16 (random weights
+             from a seed), a WeightManager sleep/wake round trip, then a
+             FunctionalServer answering 4 requests with a prefix hit on the repeat
+  serve-ssm  the SSM path: Mamba2-370m at full width in bf16, the same round
+             trip and requests, prefill through K4 and recurrent decode
 
-Launch counts are zeroed just before the serve phase and read just after it.
-The script ends with the kernels JSON line, the card's name and power limit,
-and {"ok": true, "device": {...}}. It needs a CUDA card and the repository's
+Launch counts are zeroed just before each serve phase and read just after it.
+The script ends with the kernels JSON line (launches summed over the serve
+phases, and per phase), the card's name and power limit, and
+{"ok": true, "device": {...}}. It needs a CUDA card and the repository's
 src/ beside it; it imports nothing of JAX or of the JAX package.
 Float32 comparisons run with TF32 off (matmul and cuDNN).
 """
@@ -182,6 +186,16 @@ def _flash_case(dev, gen):
             check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
                   f"flash_attention {dtype} S={S} window={window}: err {err}")
             worst[dtype] = max(worst.get(dtype, 0.0), err)
+        # queries past T with a window: the last rows see no key
+        q = torch.randn(B, H, 64, D, device=dev, generator=gen).to(dtype)
+        out = flash_attention(q, k, v, window=48, q_offset=S - 8)
+        ref = flash_attention_ref(q, k, v, window=48, q_offset=S - 8)
+        err = max_err(out, ref)
+        print(f"  flash_attention {str(dtype)[6:]} rows with no key (q_offset={S - 8}) "
+              f"max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
+        check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
+              f"flash_attention {dtype} rows with no key: err {err}")
+        worst[dtype] = max(worst[dtype], err)
     S = 512
     q = torch.randn(B, H, S, D, device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
@@ -220,7 +234,7 @@ def _decode_case(dev, gen):
         q = torch.randn(B, H, D, device=dev, generator=gen).to(dtype)
         k = torch.randn(B, G, T, D, device=dev, generator=gen).to(dtype)
         v = torch.randn(B, G, T, D, device=dev, generator=gen).to(dtype)
-        for kv_len in (1, 300, 1024):
+        for kv_len in (0, 1, 300, 1024):
             out = decode_attention(q, k, v, kv_len)
             ref = decode_attention_ref(q, k, v, kv_len)
             err = max_err(out, ref)
@@ -231,11 +245,11 @@ def _decode_case(dev, gen):
             worst[dtype] = max(worst.get(dtype, 0.0), err)
         # The wrapper the model calls: (B, 1, H, D) queries against the
         # (B, T, G, D) cache, with its own strides, at kv_lens the serve
-        # phase reaches (385-544) and the edges.
+        # phase reaches (385-544) and the edges (0: a row with no key).
         qm = torch.randn(B, 1, H, D, device=dev, generator=gen).to(dtype)
         km = torch.randn(B, T, G, D, device=dev, generator=gen).to(dtype)
         vm = torch.randn(B, T, G, D, device=dev, generator=gen).to(dtype)
-        for kv_len in (1, 385, 513, 544, 1024):
+        for kv_len in (0, 1, 385, 513, 544, 1024):
             out = decode_attention_op(qm, km, vm, kv_len)
             ref = decode_attention_op_ref(qm, km, vm, kv_len)
             err = max_err(out, ref)
@@ -269,10 +283,113 @@ def _decode_case(dev, gen):
     }
 
 
+def _ssd_inputs(dev, gen, dtype, l, h, groups, decay):
+    """x, a, B, C for K4 in the model's layout. ``fast``: a = -softplus(randn),
+    about -0.8 a step, so a key 32 positions back weighs about 1e-11 and only
+    the tiles on the diagonal show in the result. ``slow``: Mamba2's own
+    decays, a = -A dt with A spread over U(1, 16) and dt over log-uniform
+    [1e-3, 1e-1] (its init of A_log and dt_bias) by quantiles across the
+    heads, dt jittered per position, and x times dt as the block forms it: many heads decay by only O(1-10) over a
+    256-position chunk, so every key tile and every state position counts."""
+    x = torch.randn(1, l, h, 64, device=dev, generator=gen)
+    if decay == "fast":
+        x, scale = x * 0.3, 0.3
+        a = -torch.nn.functional.softplus(torch.randn(1, l, h, device=dev, generator=gen))
+    else:
+        # quantiles of both draws, each in its own random order over the heads
+        q = (torch.arange(h, device=dev) + 0.5) / h
+        A = 1 + 15 * q[torch.randperm(h, device=dev, generator=gen)]
+        dt0 = 1e-3 * 100 ** q[torch.randperm(h, device=dev, generator=gen)]
+        dt = dt0 * (0.5 + torch.rand(1, l, h, device=dev, generator=gen))
+        x, scale = x * dt[..., None], 0.5
+        a = -A * dt
+    B = (torch.randn(1, l, groups, 128, device=dev, generator=gen) * scale).to(dtype)
+    C = (torch.randn(1, l, groups, 128, device=dev, generator=gen) * scale).to(dtype)
+    return x.to(dtype), a, B, C
+
+
+def _ssd_reach(x, a, B, C, Q):
+    """What a K4 that dropped distant work would get wrong in the first
+    chunk: max |part of y_diag from keys 64 or more positions below the row|
+    (a full y tile away) and max |part of the states from all but the last
+    32 positions|. A case can see such a fault only where these exceed its
+    tolerance."""
+    r = x.shape[2] // B.shape[2]
+    x, cs = x[:, :Q].float(), torch.cumsum(a[:, :Q].float(), 1)        # (1, Q, h)
+    Bh = B[:, :Q].float().repeat_interleave(r, 2)
+    Ch = C[:, :Q].float().repeat_interleave(r, 2)
+    i = torch.arange(x.shape[1], device=x.device)
+    far = (i[:, None] - i[None, :] >= 64)[None, :, :, None]
+    L = torch.where(far, torch.exp(cs[:, :, None] - cs[:, None, :]), 0.0)  # selected
+    y_far = torch.einsum("bihn,bjhn,bijh,bjhp->bihp", Ch, Bh, L, x)
+    w = torch.exp(cs[:, -1:] - cs) * (i < x.shape[1] - 32)[None, :, None]
+    s_early = torch.einsum("bjhp,bjh,bjhn->bhpn", x, w, Bh)
+    return y_far.abs().max().item(), s_early.abs().max().item()
+
+
+def _ssd_case(dev, gen):
+    from repro_torch.kernels import ssd_chunk_op, ssd_chunk_op_ref
+
+    worst = {}
+    # the main path's shape, a ragged single chunk, two groups with a ragged
+    # last; fast decays as the random model's, and slow ones as Mamba2's
+    for dtype in (torch.bfloat16, torch.float32):
+        for l, h, groups, decay in ((512, 32, 1, "fast"), (200, 32, 1, "fast"),
+                                    (384, 32, 2, "fast"), (512, 32, 1, "slow"),
+                                    (384, 32, 2, "slow")):
+            x, a, B, C = _ssd_inputs(dev, gen, dtype, l, h, groups, decay)
+            out = ssd_chunk_op(x, a, B, C, 256)
+            ref = ssd_chunk_op_ref(x, a, B, C, 256)
+            # each output against its own dtype's tolerance: y_diag in x's
+            # dtype, states and out_decay in fp32 on both sides
+            errs = [max_err(o, r) for o, r in zip(out, ref)]
+            y_far, s_early = _ssd_reach(x, a, B, C, 256)
+            print(f"  ssd_chunk {str(dtype)[6:]} l={l} heads={h} groups={groups} "
+                  f"decay={decay} max_abs_err y={errs[0]:.3e} (tol {TOL[dtype]}) "
+                  f"states={errs[1]:.3e} out_decay={errs[2]:.3e} (tol "
+                  f"{TOL[torch.float32]}) reach y_far={y_far:.3e} "
+                  f"states_early={s_early:.3e}", flush=True)
+            check(all(o.shape == r.shape and o.dtype == r.dtype
+                      and torch.isfinite(o).all().item() for o, r in zip(out, ref))
+                  and all(e <= TOL[o.dtype] for e, o in zip(errs, out)),
+                  f"ssd_chunk {dtype} l={l} g={groups} {decay}: errors {errs}")
+            # a kernel that dropped distant work must miss by 5x the tolerance
+            check(decay == "fast" or (y_far >= 5 * TOL[dtype]
+                                      and s_early >= 5 * TOL[torch.float32]),
+                  f"ssd_chunk {dtype} l={l} {decay}: the case cannot see distant work")
+            worst[dtype] = max(worst.get(dtype, 0.0), *errs)
+    # Mamba2-370m's prefill of a 512-token prompt, one layer
+    x, a, B, C = _ssd_inputs(dev, gen, torch.bfloat16, 512, 32, 1, "fast")
+    b, l, h, P = x.shape
+    g, N, Q = B.shape[2], B.shape[3], 256
+    out = ssd_chunk_op(x, a, B, C, Q)
+    nc = l // Q
+    # causal halves: C B^T once per group, (scores) x and B^T x per head
+    tri = Q * (Q + 1) // 2
+    flops = 2 * b * nc * (g * tri * N + h * (tri * P + Q * N * P))
+    moved = nbytes(x, a, B, C, *out)
+    return {
+        "name": "ssd_chunk", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_chunk.cu",
+        "replaces": "src/repro/kernels/ssd_chunk/ssd_chunk.py:44",
+        "shape": f"x ({b}, {l}, {h}, {P}) bf16, a fp32, B,C ({b}, {l}, {g}, {N}) bf16, "
+                 f"chunk {Q}",
+        "max_abs_err": worst[torch.bfloat16],
+        "max_abs_err_f32": worst[torch.float32],
+        **timed("ms", lambda: ssd_chunk_op(x, a, B, C, Q), 20),
+        **timed("plain_ms", lambda: ssd_chunk_op_ref(x, a, B, C, Q), 20),
+        "library_ms": None,            # no single PyTorch call computes it
+        "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
+        else "bytes",
+    }
+
+
 def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows = [_relay_case(dev, gen), _flash_case(dev, gen), _decode_case(dev, gen)]
-    report("kernels", **{r["name"]: {k: r[k] for k in (
+    rows = [_relay_case(dev, gen), _flash_case(dev, gen), _decode_case(dev, gen),
+            _ssd_case(dev, gen)]
+    report("kernels", **{r["name"]: {k: r.get(k) for k in (
         "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         for r in rows})
     return rows
@@ -341,22 +458,32 @@ def phase_transfer(dev):
 
 
 # ---------------------------------------------------------------------------
-def phase_serve(dev):
-    import repro_torch.models.attention as attention
+def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
+           page_size=16, state_leaf=None, state_probe=None):
+    """Drive ``model`` at full width in bf16 through the main path: random
+    weights from seed 0, a WeightManager sleep/wake round trip, and a
+    FunctionalServer answering 4 requests of 512, 384, 512 (the repeat) and
+    200 prompt tokens with 32 new tokens each. Then hold the first request
+    against the plain path (``plain_path`` patches the kernels' plain
+    versions into the model): the prefill's logits, and 8 decode steps fed
+    the served tokens, from a copy of the kernels' prefill caches, or of
+    the plain path's own when ``decode_from_plain_prefill`` (decode runs
+    no kernel there, so only the prefill state can differ). ``state_leaf``
+    names a recurrent state in the caches and ``state_probe`` a context
+    that, around the kernels' prefill, yields each layer's relative error
+    of that state against the plain version on the same layer inputs:
+    those are held to 2e-2, and the state's difference after the whole
+    model and the decode reading with the state zeroed are reported.
+    Returns the launch counts of the main path and the result fields."""
     from repro_torch.configs import get_config
     from repro_torch.core import make_functional_engine
-    from repro_torch.kernels import (
-        decode_attention_op_ref,
-        flash_attention_op_ref,
-        launch_counts,
-        reset_launch_counts,
-    )
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import decode_step, init_params, param_bytes, prefill
     from repro_torch.serving import FunctionalServer, WeightManager
     from repro_torch.tree import tree_leaves, tree_map
 
-    cfg = get_config("tinyllama-1.1b")          # full width, bf16
-    check(cfg.dtype == torch.bfloat16, "tinyllama must default to bf16")
+    cfg = get_config(model)                      # full width, bf16
+    check(cfg.dtype == torch.bfloat16, f"{model} must default to bf16")
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()                        # --- the main path starts here
     t_main = time.monotonic()
@@ -373,7 +500,8 @@ def phase_serve(dev):
     check(exact, "sleep/wake round trip is not bit-exact")
     del reference
 
-    srv = FunctionalServer(cfg, params=params, max_len=1024, max_running=2)
+    srv = FunctionalServer(cfg, params=params, max_len=1024, max_running=2,
+                           page_size=page_size)
     rng = np.random.default_rng(0)
     p1 = rng.integers(0, cfg.vocab, size=512)
     prompts = [p1, rng.integers(0, cfg.vocab, size=384), p1,
@@ -393,24 +521,14 @@ def phase_serve(dev):
     check(reqs[0].hit_tokens == 0 and reqs[2].hit_tokens > 0,
           f"no prefix hit on the repeat (hits {[r.hit_tokens for r in reqs]})")
     check(reqs[2].generated == reqs[0].generated, "the repeat generated other tokens")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
-
-    # The first request against the plain path (the plain versions of K2/K3
-    # patched into the model for this comparison only): the prefill's
-    # logits, then 8 decode steps from copies of the same caches, fed the
-    # tokens the server generated (kv_len 513-520).
-    @contextlib.contextmanager
-    def plain_path():
-        with mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref), \
-                mock.patch.object(attention, "decode_attention_op",
-                                  decode_attention_op_ref):
-            yield
+    for name in path_kernels:
+        check(counts[name] > 0, f"kernel {name} was not launched on the main path")
 
     toks = torch.as_tensor(p1, dtype=torch.long, device=dev)[None]
-    logits, caches, clen = prefill(params, toks, cfg, max_len=1024)
+    with state_probe() if state_probe else contextlib.nullcontext([]) as state_errs:
+        logits, caches, clen = prefill(params, toks, cfg, max_len=1024)
     with plain_path():
-        plain, _, _ = prefill(params, toks, cfg, max_len=1024)
+        plain, plain_caches, _ = prefill(params, toks, cfg, max_len=1024)
     check(logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all().item(),
           "prefill logits are not finite or have the wrong shape")
     rel = max_err(logits, plain) / plain.float().abs().max().item()
@@ -429,7 +547,7 @@ def phase_serve(dev):
 
     dec = decode_steps(caches)
     with plain_path():
-        dec_plain = decode_steps(caches)
+        dec_plain = decode_steps(plain_caches if decode_from_plain_prefill else caches)
     check(torch.isfinite(dec).all().item(), "decode logits are not finite")
     dec_rel = max(max_err(a, b) / b.float().abs().max().item()
                   for a, b in zip(dec, dec_plain))
@@ -437,17 +555,101 @@ def phase_serve(dev):
           f"decode logits differ from the plain path: {dec_rel:.3e} of max")
     check(torch.argmax(dec, -1).tolist() == reqs[0].generated[1:9],
           "the kernels' decode steps do not give the served tokens")
+    state = {}
+    if state_leaf is not None:
+        check(len(state_errs) == cfg.n_layers and max(state_errs) <= 2e-2,
+              f"prefill {state_leaf} states differ from the plain version on the "
+              f"same inputs: {state_errs}")
+        # after the whole model, where each path's layers saw their own inputs
+        drift = max(
+            (s.float() - r.float()).norm().item() / r.float().norm().item()
+            for c, pc in zip(caches, plain_caches) if state_leaf in c
+            for s, r in zip(c[state_leaf], pc[state_leaf]))
+        lost = decode_steps([{k: torch.zeros_like(v) if k == state_leaf else v
+                              for k, v in c.items()} for c in caches])
+        state = dict(
+            state_rel_err=max(state_errs), state_rel_err_after_model=drift,
+            decode_logits_rel_err_state_zeroed=max(
+                max_err(a, b) / b.float().abs().max().item()
+                for a, b in zip(lost, dec_plain)))
 
     n_tokens = sum(len(r.generated) for r in reqs)
-    report("serve", model=cfg.name, params=sum(t.numel() for t in tree_leaves(params)),
-           weight_bytes=param_bytes(params), sleep_ms=sleep.seconds * 1e3,
-           wake_ms=wake.seconds * 1e3, sleep_GBps=wm.nbytes / 1e9 / sleep.seconds,
-           wake_GBps=wm.nbytes / 1e9 / wake.seconds, roundtrip_bit_exact=exact,
-           ttft_ms=[r.ttft * 1e3 for r in reqs], hit_tokens=[r.hit_tokens for r in reqs],
-           tokens=n_tokens, serve_s=serve_s, tokens_per_s=n_tokens / serve_s,
-           main_path_s=main_s, peak_mem_GB=peak / 1e9,
-           logits_rel_err=rel, decode_logits_rel_err=dec_rel,
-           transfer_log=srv.transfer_log, launches=counts)
+    return cfg, reqs, counts, dict(
+        model=cfg.name, params=sum(t.numel() for t in tree_leaves(params)),
+        weight_bytes=param_bytes(params), sleep_ms=sleep.seconds * 1e3,
+        wake_ms=wake.seconds * 1e3, sleep_GBps=wm.nbytes / 1e9 / sleep.seconds,
+        wake_GBps=wm.nbytes / 1e9 / wake.seconds, roundtrip_bit_exact=exact,
+        ttft_ms=[r.ttft * 1e3 for r in reqs], hit_tokens=[r.hit_tokens for r in reqs],
+        tokens=n_tokens, serve_s=serve_s, tokens_per_s=n_tokens / serve_s,
+        main_path_s=main_s, peak_mem_GB=peak / 1e9,
+        logits_rel_err=rel, decode_logits_rel_err=dec_rel, **state,
+        transfer_log=srv.transfer_log, launches=counts)
+
+
+def phase_serve(dev):
+    """TinyLlama-1.1B: prefill through K3, decode through K2, wake through
+    K1. Decode is compared from the same caches, so the plain K2 is held
+    to the kernel step by step (kv_len 513-520)."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels import decode_attention_op_ref, flash_attention_op_ref
+
+    @contextlib.contextmanager
+    def plain_path():
+        with mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref), \
+                mock.patch.object(attention, "decode_attention_op",
+                                  decode_attention_op_ref):
+            yield
+
+    _, _, counts, fields = _serve(
+        dev, "tinyllama-1.1b", plain_path,
+        ("relay_assemble", "flash_attention", "decode_attention"),
+        decode_from_plain_prefill=False)
+    report("serve", **fields)
+    return counts
+
+
+def phase_serve_ssm(dev):
+    """Mamba2-370m: prefill through K4 (48 launches per request, one per
+    layer), recurrent decode, wake through K1. Each layer's final SSM
+    state from the prefill is held to the plain version's on the same
+    layer inputs (2e-2 in the Frobenius norm), which holds K4's final
+    state and not only its y; decode is compared from each path's own
+    prefill state."""
+    import repro_torch.models.ssm as ssm
+    from repro_torch.kernels import ssd_op_ref
+
+    def plain_path():
+        return mock.patch.object(ssm, "ssd_op", ssd_op_ref)
+
+    @contextlib.contextmanager
+    def state_probe():
+        """Each layer's final state from K4 against the plain version's
+        on the same inputs: |kernel - plain| / |plain|, Frobenius."""
+        errs, kernel = [], ssm.ssd_op
+
+        def probe(xbar, a, B, C, chunk, initial_state=None):
+            y, s = kernel(xbar, a, B, C, chunk, initial_state)
+            r = ssd_op_ref(xbar, a, B, C, chunk, initial_state)[1].float()
+            errs.append((s.float() - r).norm().item() / r.norm().item())
+            return y, s
+
+        with mock.patch.object(ssm, "ssd_op", probe):
+            yield errs
+
+    # A recurrent state is a point snapshot, so the prefix store trims a hit
+    # back to the last page stored whole (exact_only). The first request
+    # leaves 543 tokens; at 32-token pages its last whole page ends at 512,
+    # where the repeat's prompt ends (at 16-token pages it would end at
+    # 528, past the prompt, and the repeat would miss).
+    cfg, reqs, counts, fields = _serve(
+        dev, "mamba2-370m", plain_path, ("relay_assemble", "ssd_chunk"),
+        decode_from_plain_prefill=True, page_size=32, state_leaf="ssm",
+        state_probe=state_probe)
+    check(counts["ssd_chunk"] == cfg.n_layers * len(reqs),
+          f"K4 launched {counts['ssd_chunk']} times, not {cfg.n_layers} per request")
+    check(counts["flash_attention"] == counts["decode_attention"] == 0,
+          "an attention kernel ran on the attention-free model")
+    report("serve-ssm", **fields)
     return counts
 
 
@@ -479,7 +681,8 @@ def main(argv=None) -> int:
             ("build", lambda: phase_build(args.out)),
             ("kernels", lambda: rows.extend(phase_kernels(dev))),
             ("transfer", lambda: phase_transfer(dev)),
-            ("serve", lambda: counts.update(phase_serve(dev))),
+            ("serve", lambda: counts.update(serve=phase_serve(dev))),
+            ("serve-ssm", lambda: counts.update({"serve-ssm": phase_serve_ssm(dev)})),
         ):
             t0 = time.monotonic()
             run()
@@ -492,7 +695,8 @@ def main(argv=None) -> int:
         print(f"FAIL {type(e).__name__}: {e}", flush=True)
         return 1
     for r in rows:
-        r["launches"] = counts[r["name"]]
+        r["launches_by_path"] = {path: c[r["name"]] for path, c in counts.items()}
+        r["launches"] = sum(r["launches_by_path"].values())
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

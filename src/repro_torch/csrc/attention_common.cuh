@@ -110,6 +110,16 @@ __device__ __forceinline__ void row_tile(RowState<DPL>& st, const float* qrow,
   st.m = m_new;
 }
 
+// What the plain versions give a query row that sees no key: softmax over
+// uniform -1e30 scores puts 1/T on every one of the T cache rows, so the
+// row's output is the mean of V over [0, T), in fp32 (0 when T is 0).
+template <typename T>
+__device__ __forceinline__ float mean_v(const T* v, long long vst, int Tk, int d) {
+  float s = 0.f;
+  for (int t = 0; t < Tk; ++t) s += to_float(v[t * vst + d]);
+  return Tk > 0 ? s / (float)Tk : 0.f;
+}
+
 // Raise a kernel's dynamic shared-memory limit when it needs more than the
 // default 48 KB (only D = 128 with many rows does).
 template <typename K>

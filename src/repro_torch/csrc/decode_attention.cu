@@ -18,6 +18,9 @@
 // loaded once into shared memory and used by all R heads (one warp per
 // head). Blocks whose split starts at or past kv_len exit before loading
 // anything, so a step reads only the valid cache, not max_len. Any T works.
+// A row with kv_len <= 0 sees no key: every split exits, and the combine
+// kernel writes what the plain version gives there, the mean of V over the
+// whole cache [0, T) (softmax over uniform -1e30 scores).
 #include "attention_common.cuh"
 
 namespace {
@@ -99,13 +102,20 @@ __global__ void decode_combine_kernel(const int* __restrict__ kv_len,
                                       const float* __restrict__ m_part,
                                       const float* __restrict__ l_part,
                                       const float* __restrict__ acc_part,
-                                      T* __restrict__ o, int H, int Tk, int D,
-                                      long long osb, long long osh, int n_splits,
-                                      int split_len) {
+                                      const T* __restrict__ v, T* __restrict__ o, int H,
+                                      int G, int Tk, int D, long long vsb, long long vst,
+                                      long long vsg, long long osb, long long osh,
+                                      int n_splits, int split_len) {
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int len = min(kv_len[b], Tk);
+  if (len <= 0) {  // no visible key
+    const T* vb = v + b * vsb + (h / (H / G)) * vsg;
+    for (int d = threadIdx.x; d < D; d += blockDim.x)
+      o[b * osb + h * osh + d] = from_float<T>(mean_v(vb, vst, Tk, d));
+    return;
+  }
   const int active = min(n_splits, (len + split_len - 1) / split_len);
   const float* mp = m_part + (long long)bh * n_splits;
   const float* lp = l_part + (long long)bh * n_splits;
@@ -143,7 +153,8 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len, void
   const int threads = ((D + 31) / 32) * 32;
   decode_combine_kernel<T><<<B * H, threads, 0, stream>>>(
       (const int*)kv_len, (const float*)m_part, (const float*)l_part,
-      (const float*)acc_part, (T*)o, H, Tk, D, s[8], s[9], n_splits, split_len);
+      (const float*)acc_part, (const T*)v, (T*)o, H, G, Tk, D, s[5], s[6], s[7], s[8],
+      s[9], n_splits, split_len);
   return (int)cudaGetLastError();
 }
 

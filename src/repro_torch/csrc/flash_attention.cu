@@ -17,8 +17,11 @@
 // lane and keeps its rows' running max, denominator and accumulator in
 // registers. Tiles wholly above the causal diagonal or wholly outside the
 // window are never loaded. Ragged Sq and T are masked here, so any length
-// works (no power-of-two block search). This first version runs on the
-// CUDA cores; wgmma tiles fed by TMA are the later step toward the bound.
+// works (no power-of-two block search). A row that sees no key (a causal
+// position past T with a window, or before 0 through a negative offset)
+// gets what the plain version gives it: the mean of V over [0, T). This
+// first version runs on the CUDA cores; wgmma tiles fed by TMA are the
+// later step toward the bound.
 #include "attention_common.cuh"
 
 namespace {
@@ -98,6 +101,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int sq = q0 + warp * kRowsPerWarp + rr;
     if (sq >= Sq) continue;
+    const int p = sq + q_offset;  // keys [lo, hi] are visible to this row
+    const int hi = causal ? min(p, Tk - 1) : Tk - 1;
+    const int lo = window > 0 ? max(0, p - window + 1) : 0;
+    if (lo > hi) {
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) ob[sq * oss + d] = from_float<T>(mean_v(vb, vst, Tk, d));
+      }
+      continue;
+    }
     const float inv = 1.f / fmaxf(st[rr].l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {

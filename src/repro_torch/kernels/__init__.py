@@ -8,8 +8,7 @@ one where the kernel is launched and nowhere else.
   K1 ``relay_assemble``   <- repro/kernels/relay_copy/relay_copy.py
   K2 ``decode_attention`` <- repro/kernels/decode_attention/decode_attention.py
   K3 ``flash_attention``  <- repro/kernels/flash_attention/flash_attention.py
-
-K4 (``ssd_chunk``, Mamba2 SSD) is not ported yet.
+  K4 ``ssd_chunk``        <- repro/kernels/ssd_chunk/ssd_chunk.py
 """
 from typing import Dict
 
@@ -26,11 +25,20 @@ from .flash_attention import (
     flash_attention_ref,
 )
 from .relay_copy import relay_assemble, relay_assemble_ref
+from .ssd_chunk import (
+    ssd_chunk,
+    ssd_chunk_op,
+    ssd_chunk_op_ref,
+    ssd_chunk_ref,
+    ssd_op,
+    ssd_op_ref,
+)
 
 KERNELS = {
     "relay_assemble": relay_assemble,
     "decode_attention": decode_attention,
     "flash_attention": flash_attention,
+    "ssd_chunk": ssd_chunk,
 }
 
 

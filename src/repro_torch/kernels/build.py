@@ -47,6 +47,7 @@ _SIGNATURES = {
     "decode_attention_launch": (
         [_P] * 8 + [_I] * 6 + [_L] * 10 + [_I, _I, _F, _P]
     ),
+    "ssd_chunk_launch": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P],
 }
 
 

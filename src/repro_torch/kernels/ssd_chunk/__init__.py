@@ -1,0 +1,3 @@
+from .ops import ssd_chunk_op, ssd_chunk_op_ref, ssd_op, ssd_op_ref
+from .ref import ssd_chunk_ref
+from .ssd_chunk import ssd_chunk

@@ -1,6 +1,7 @@
-"""The dense GQA transformer on PyTorch: prefill and decode through the
-K3 and K2 kernels. MoE, SSM, hybrid and cross-attention families are not
-ported yet."""
+"""The model families on PyTorch: the dense GQA transformer (prefill and
+decode through the K3 and K2 kernels), Mamba2 (SSD prefill through the K4
+kernel, recurrent decode), and periods that interleave the two (the hybrid
+plan, without MoE). MoE and cross-attention are not ported yet."""
 from .attention import (
     decode_self_attention,
     init_kv_cache,
@@ -20,4 +21,14 @@ from .layers import (
     unembed,
 )
 from .model import decode_step, forward, prefill
+from .ssm import (
+    causal_conv,
+    conv_decode_step,
+    init_ssm_state,
+    mamba_block,
+    mamba_block_decode,
+    segsum,
+    ssd_chunked,
+    ssd_decode_step,
+)
 from .transformer import init_caches, run_blocks, super_block

@@ -50,21 +50,30 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     if not cfg.tie_embeddings:
         params["head"] = _dense(gen, (d, cfg.vocab), dt, device)
     blocks: List[Dict] = []
-    for _ in cfg.layer_plan():
-        p = {
-            "ln1": const(1.0, d),
-            "wq": dense(d, H * D),
-            "wo": dense(H * D, d),
-            "wk": dense(d, G * D),
-            "wv": dense(d, G * D),
-            "ln2": const(1.0, d),
-            "w_gate": dense(d, cfg.d_ff),
-            "w_up": dense(d, cfg.d_ff),
-            "w_down": dense(cfg.d_ff, d),
-        }
-        if cfg.qkv_bias:
-            p.update(bq=const(0.0, H * D), bk=const(0.0, G * D),
-                     bv=const(0.0, G * D))
+    for mixer, channel in cfg.layer_plan():
+        p = {"ln1": const(1.0, d)}
+        if mixer == "attn":
+            p.update(wq=dense(d, H * D), wo=dense(H * D, d),
+                     wk=dense(d, G * D), wv=dense(d, G * D))
+            if cfg.qkv_bias:
+                p.update(bq=const(0.0, H * D), bk=const(0.0, G * D),
+                         bv=const(0.0, G * D))
+        else:                                    # ssm
+            di, h, w = cfg.ssm_d_inner, cfg.ssm_heads, cfg.conv_width
+            gn = cfg.ssm_groups * cfg.ssm_state
+            p.update(
+                w_z=dense(d, di), w_x=dense(d, di), w_B=dense(d, gn),
+                w_C=dense(d, gn), w_dt=dense(d, h),
+                conv_x_w=dense(w, di, scale=w ** -0.5), conv_x_b=const(0.0, di),
+                conv_B_w=dense(w, gn, scale=w ** -0.5), conv_B_b=const(0.0, gn),
+                conv_C_w=dense(w, gn, scale=w ** -0.5), conv_C_b=const(0.0, gn),
+                dt_bias=const(0.5, h),
+                A_log=torch.zeros((n, h), dtype=torch.float32, device=device),
+                D=const(1.0, h), norm=const(1.0, di), w_out=dense(di, d),
+            )
+        if channel == "mlp":
+            p.update(ln2=const(1.0, d), w_gate=dense(d, cfg.d_ff),
+                     w_up=dense(d, cfg.d_ff), w_down=dense(cfg.d_ff, d))
         blocks.append(p)
     params["blocks"] = blocks
     return params

@@ -3,8 +3,9 @@ with parameters and caches stacked along a leading ``n_periods`` axis as
 in the JAX package. JAX's ``lax.scan`` over periods becomes a Python loop;
 caches are updated in place (PyTorch has no need to rebuild them).
 
-Only attention mixers and MLP channels are ported; the SSM and
-cross-attention mixers and the MoE channel raise ``NotImplementedError``.
+Attention and SSM mixers, MLP channels and no channel at all are ported,
+in any interleave within a period (the hybrid plan); the cross-attention
+mixer and the MoE channel raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -14,9 +15,9 @@ import torch
 
 from .attention import decode_self_attention, init_kv_cache, self_attention
 from .layers import mlp_forward, rms_norm
+from .ssm import init_ssm_state, mamba_block, mamba_block_decode
 
 _NOT_PORTED = {
-    "ssm": "the Mamba2 SSM mixer (and its K4 ssd_chunk kernel)",
     "cross_attn": "the cross-attention mixer",
     "moe": "the MoE channel",
 }
@@ -31,9 +32,9 @@ def _not_ported(kind: str) -> NotImplementedError:
 
 def check_supported(cfg) -> None:
     for mixer, channel in cfg.layer_plan():
-        if mixer != "attn":
+        if mixer in _NOT_PORTED:
             raise _not_ported(mixer)
-        if channel == "moe":
+        if channel in _NOT_PORTED:
             raise _not_ported(channel)
 
 
@@ -45,8 +46,11 @@ def init_caches(cfg, batch: int, max_len: int, window: int = 0,
     """Per-period-position caches with a leading n_periods axis."""
     check_supported(cfg)
     caches: List = []
-    for _ in cfg.layer_plan():
-        one = init_kv_cache(cfg, batch, max_len, window, device=device)
+    for mixer, _ in cfg.layer_plan():
+        if mixer == "attn":
+            one = init_kv_cache(cfg, batch, max_len, window, device=device)
+        else:
+            one = init_ssm_state(cfg, batch, device=device)
         caches.append({
             name: torch.zeros((cfg.n_periods,) + tuple(a.shape), dtype=a.dtype,
                               device=a.device)
@@ -82,30 +86,37 @@ def super_block(
 ):
     new_caches: List = []
     for j, (mixer, channel) in enumerate(cfg.layer_plan()):
-        if mixer != "attn":
+        if mixer in _NOT_PORTED:
             raise _not_ported(mixer)
         p = params_period[j]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         cache_j = caches[j] if caches is not None else None
-        if mode == "decode":
-            y, new_cache = decode_self_attention(
+        if mode == "train":
+            y = (self_attention(p, h, cfg, window=window) if mixer == "attn"
+                 else mamba_block(p, h, cfg))
+        elif mixer == "attn" and mode == "decode":
+            y, _ = decode_self_attention(
                 p, h, cache_j, cache_len, cfg, window=window
             )
-        elif mode == "prefill":
+        elif mixer == "attn":
             y, kv = self_attention(p, h, cfg, window=window, return_cache=True)
             for name in ("k", "v"):
                 _write_prefix(cache_j[name], kv[name], window)
-            new_cache = cache_j
         else:
-            y = self_attention(p, h, cfg, window=window)
-            new_cache = cache_j
+            # the SSM state and conv tails replace the cache's in place
+            if mode == "decode":
+                y, state = mamba_block_decode(p, h, cache_j, cfg)
+            else:
+                y, state = mamba_block(p, h, cfg, return_state=True)
+            for name, t in state.items():
+                cache_j[name].copy_(t)
         x = x + y
         if channel != "none":
-            if channel == "moe":
+            if channel in _NOT_PORTED:
                 raise _not_ported(channel)
             h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
             x = x + mlp_forward(p, h2, cfg.mlp)
-        new_caches.append(new_cache)
+        new_caches.append(cache_j)
     return x, new_caches
 
 

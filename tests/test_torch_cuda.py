@@ -21,11 +21,17 @@ from repro_torch.core import MMAConfig, make_functional_engine, \
     multipath_device_get, multipath_device_put
 from repro_torch.kernels import (
     decode_attention,
+    decode_attention_op,
+    decode_attention_op_ref,
     decode_attention_ref,
     flash_attention,
     flash_attention_ref,
     relay_assemble,
     relay_assemble_ref,
+    ssd_chunk,
+    ssd_chunk_op,
+    ssd_chunk_op_ref,
+    ssd_chunk_ref,
 )
 from repro_torch.models import decode_step, init_params, prefill
 from repro_torch.tree import tree_map
@@ -79,6 +85,92 @@ def test_decode_matches_plain(dev, dtype, kv):
     _close(out, decode_attention_ref(q, k, v, lens), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_with_no_key_match_plain(dev, dtype):
+    """K2 at kv_len 0 (both wrappers) and K3 rows past T with a window give
+    the plain versions' mean of V over the whole cache."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn(2, 32, 64, device=dev, generator=g).to(dtype)
+    k = torch.randn(2, 4, 300, 64, device=dev, generator=g).to(dtype)
+    v = torch.randn(2, 4, 300, 64, device=dev, generator=g).to(dtype)
+    lens = torch.tensor([0, 37], dtype=torch.int32, device=dev)
+    _close(decode_attention(q, k, v, lens), decode_attention_ref(q, k, v, lens), dtype)
+    km, vm = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    _close(decode_attention_op(q[:, None], km, vm, 0),
+           decode_attention_op_ref(q[:, None], km, vm, 0), dtype)
+    qs = torch.randn(2, 8, 40, 64, device=dev, generator=g).to(dtype)
+    ks, vs = k[:, :2, :64].contiguous(), v[:, :2, :64].contiguous()
+    _close(flash_attention(qs, ks, vs, window=16, q_offset=48),
+           flash_attention_ref(qs, ks, vs, window=16, q_offset=48), dtype)
+
+
+def _ssd_inputs(dev, dtype, b, l, h, p, n, groups, decay="fast"):
+    """``fast``: a = -softplus(randn), about -0.8 a step, so only keys near
+    the diagonal show. ``slow``: Mamba2's decays, a = -A dt with A over
+    U(1, 16) and dt over log-uniform [1e-3, 1e-1] by quantiles across the
+    heads (dt jittered per position) and x times dt, so every key tile and
+    every state position of a 256-position chunk adds to the result."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn(b, l, h, p, device=dev, generator=g)
+    if decay == "fast":
+        x, scale = x * 0.3, 0.3
+        a = -torch.nn.functional.softplus(torch.randn(b, l, h, device=dev, generator=g))
+    else:
+        q = (torch.arange(h, device=dev) + 0.5) / h
+        A = 1 + 15 * q[torch.randperm(h, device=dev, generator=g)]
+        dt0 = 1e-3 * 100 ** q[torch.randperm(h, device=dev, generator=g)]
+        dt = dt0 * (0.5 + torch.rand(b, l, h, device=dev, generator=g))
+        x, scale = x * dt[..., None], 0.5
+        a = -A * dt
+    B = (torch.randn(b, l, groups, n, device=dev, generator=g) * scale).to(dtype)
+    C = (torch.randn(b, l, groups, n, device=dev, generator=g) * scale).to(dtype)
+    return x.to(dtype), a, B, C
+
+
+def _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, decay):
+    """K4 against its plain version; y_diag at x's dtype's tolerance, the
+    states and out_decay (fp32 on both sides) at fp32's."""
+    x, a, B, C = _ssd_inputs(dev, dtype, 2, l, h, p, n, groups, decay)
+    before = ssd_chunk.launches
+    got = ssd_chunk_op(x, a, B, C, chunk)
+    assert ssd_chunk.launches == before + 1
+    want = ssd_chunk_op_ref(x, a, B, C, chunk)
+    for out, ref, want_dtype in zip(got, want, (dtype, torch.float32, torch.float32)):
+        assert out.dtype == want_dtype and out.shape == ref.shape
+        _close(out, ref, want_dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,h,p,n,groups,chunk", [
+    (512, 32, 64, 128, 1, 256),    # Mamba2-370m's prefill of 512 tokens
+    (200, 8, 64, 128, 2, 256),     # ragged single chunk, two groups
+    (100, 4, 32, 16, 2, 32),       # ragged last chunk, reduced widths
+])
+def test_ssd_chunk_matches_plain(dev, dtype, l, h, p, n, groups, chunk):
+    _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, "fast")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l,h,p,n,groups,chunk", [
+    (512, 32, 64, 128, 1, 256),    # Mamba2-370m's prefill of 512 tokens
+    (384, 32, 64, 128, 2, 256),    # ragged last chunk, two groups
+])
+def test_ssd_chunk_slow_decays_match_plain(dev, dtype, l, h, p, n, groups, chunk):
+    """Decays slow enough that a kernel which dropped key tiles far below
+    the diagonal, or early positions of the state, would fail."""
+    _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, "slow")
+
+
+def test_ssd_chunk_fused_layout_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(6, 2, 64, 16, device=dev, generator=g) * 0.3
+    a = -torch.rand(6, 2, 64, device=dev, generator=g)
+    B = torch.randn(6, 2, 64, 32, device=dev, generator=g) * 0.3
+    C = torch.randn(6, 2, 64, 32, device=dev, generator=g) * 0.3
+    for out, ref in zip(ssd_chunk(x, a, B, C), ssd_chunk_ref(x, a, B, C)):
+        _close(out, ref, torch.float32)
+
+
 @pytest.mark.parametrize("width", [1, 7, 4096])
 def test_relay_is_bit_exact(dev, width):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -125,3 +217,29 @@ def test_reduced_model_on_the_card_matches_cpu(dev):
         cn += 1
         gn += 1
         _close(gl, cl, torch.float32)
+
+
+def test_reduced_mamba2_on_the_card_matches_cpu(dev):
+    """Prefill (K4, a ragged last chunk) and 4 greedy recurrent decode steps
+    on the card against the plain version on the CPU, same fp32 weights."""
+    cfg = get_config("mamba2-370m").reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_params = tree_map(lambda t: t.to(dev), cpu_params)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))).long()
+    before = ssd_chunk.launches
+    cl, cc, cn = prefill(cpu_params, toks, cfg, max_len=48)
+    gl, gc, gn = prefill(gpu_params, toks.to(dev), cfg, max_len=48)
+    assert ssd_chunk.launches == before + cfg.n_layers
+    _close(gl, cl, torch.float32)
+    for _ in range(4):
+        tok = torch.argmax(cl, -1)
+        assert torch.equal(torch.argmax(gl, -1).cpu(), tok)
+        cl, cc = decode_step(cpu_params, tok, cc, cn, cfg)
+        gl, gc = decode_step(gpu_params, tok.to(dev), gc, gn, cfg)
+        cn += 1
+        gn += 1
+        _close(gl, cl, torch.float32)
+    for c_cache, g_cache in zip(cc, gc):
+        for name in c_cache:
+            _close(g_cache[name], c_cache[name], torch.float32)

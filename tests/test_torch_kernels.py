@@ -16,6 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.kernels.decode_attention import decode_attention as jax_decode
+from repro.kernels.decode_attention import decode_attention_ref as jax_decode_ref
+from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.relay_copy import relay_assemble as jax_relay
 from repro_torch.kernels import (
@@ -28,6 +30,8 @@ from repro_torch.kernels import (
     launch_counts,
     relay_assemble,
     relay_assemble_ref,
+    ssd_chunk,
+    ssd_chunk_op,
 )
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -98,6 +102,21 @@ def test_flash_q_offset_matches_jax_kernel():
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol("float32"))
 
 
+def test_flash_plain_rows_with_no_visible_key_match_jax_oracle():
+    """Query positions past T with a window see no key: the oracle (and so
+    the plain version and the CUDA kernel) gives them the mean of V over
+    [0, T)."""
+    rng = np.random.default_rng(9)
+    jq, tq = both(rng.standard_normal((1, 4, 24, 16), np.float32), "float32")
+    jk, tk = both(rng.standard_normal((1, 2, 32, 16), np.float32), "float32")
+    jv, tv = both(rng.standard_normal((1, 2, 32, 16), np.float32), "float32")
+    ref = jax_flash_ref(jq, jk, jv, window=8, q_offset=24)
+    out = flash_attention(tq, tk, tv, window=8, q_offset=24)
+    np.testing.assert_allclose(as_np(out), as_np(ref), **tol("float32"))
+    mean_v = tv.mean(dim=2).repeat_interleave(2, dim=1)     # (1, 4, 16)
+    np.testing.assert_allclose(as_np(out[:, :, -1]), as_np(mean_v), **tol("float32"))
+
+
 def test_flash_op_model_layout_matches_kernel_layout():
     rng = np.random.default_rng(3)
     q = torch.from_numpy(rng.standard_normal((2, 40, 4, 32), np.float32))
@@ -145,6 +164,25 @@ def test_decode_plain_edge_lengths_match_jax_kernel(kv):
     ref = jax_decode(jq, jk, jv, jnp.full((B,), kv), block_k=16)
     out = decode_attention(tq, tk, tv, kv)
     np.testing.assert_allclose(as_np(out), as_np(ref), **tol("float32"))
+
+
+def test_decode_plain_row_with_no_key_matches_jax_oracle():
+    """kv_len = 0 for one sequence: softmax over uniform -1e30 scores gives
+    the mean of V over the whole cache, through both wrappers."""
+    rng = np.random.default_rng(10)
+    B, H, G, T, D = 2, 4, 2, 48, 16
+    jq, tq = both(rng.standard_normal((B, H, D), np.float32), "float32")
+    jk, tk = both(rng.standard_normal((B, G, T, D), np.float32), "float32")
+    jv, tv = both(rng.standard_normal((B, G, T, D), np.float32), "float32")
+    kv_len = np.array([0, 20], np.int32)
+    ref = jax_decode_ref(jq, jk, jv, jnp.asarray(kv_len))
+    out = decode_attention(tq, tk, tv, torch.from_numpy(kv_len))
+    np.testing.assert_allclose(as_np(out), as_np(ref), **tol("float32"))
+    mean_v = tv[0].mean(dim=1).repeat_interleave(H // G, dim=0)
+    np.testing.assert_allclose(as_np(out[0]), as_np(mean_v), **tol("float32"))
+    op = decode_attention_op(tq[:, None], tk.transpose(1, 2).contiguous(),
+                             tv.transpose(1, 2).contiguous(), torch.from_numpy(kv_len))
+    assert torch.equal(op[:, 0], out)
 
 
 def test_decode_op_model_layout_matches_kernel_layout():
@@ -208,7 +246,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     assert launch_counts() == before
 
 
-@pytest.mark.parametrize("case", ["dtype", "group", "head_dim", "layout", "perm"])
+@pytest.mark.parametrize("case", ["dtype", "group", "head_dim", "layout", "perm",
+                                  "ssd_dtype", "ssd_group"])
 def test_wrappers_reject_what_the_kernels_do_not_take(case):
     q = torch.zeros(1, 4, 8, 16)
     k = torch.zeros(1, 2, 8, 16)
@@ -222,5 +261,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
                             torch.zeros(1, 2, 8, 160))
         elif case == "layout":
             flash_attention(torch.zeros(1, 8, 4, 16).transpose(1, 2), k, k)
+        elif case == "ssd_dtype":
+            x = torch.zeros(2, 1, 8, 4, dtype=torch.half)
+            ssd_chunk(x, torch.zeros(2, 1, 8), x, x)
+        elif case == "ssd_group":       # 3 B/C groups do not divide 4 heads
+            ssd_chunk_op(torch.zeros(1, 8, 4, 2), torch.zeros(1, 8, 4),
+                         torch.zeros(1, 8, 3, 4), torch.zeros(1, 8, 3, 4), 8)
         else:
             relay_assemble(torch.zeros(3, 4), torch.tensor([0, 1, 2]))

@@ -10,7 +10,10 @@ Phases, one result line each:
              K4 ssd_chunk, each held against its plain PyTorch version on the
              card at the main path's shapes (and at rows that see no key, a
              ragged chunk, two B/C groups), and timed beside its bound, the
-             plain version and one PyTorch library call where there is one
+             plain version and one PyTorch library call where there is one;
+             K3 also through the model-layout wrapper and at a 2048-token
+             prompt (its share of the operations bound), with the HGMMA count
+             `cuobjdump -sass` finds in its bf16 kernel
   transfer   multipath_device_put / _get of a 1 GiB pinned bf16 tensor, bit-exact,
              over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
   serve      the dense path: TinyLlama-1.1B at full width in bf16 (random weights
@@ -169,7 +172,7 @@ def _relay_case(dev, gen):
 
 def _flash_case(dev, gen):
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, flash_attention_ref
+    from repro_torch.kernels import flash_attention, flash_attention_op, flash_attention_ref
 
     B, H, G, D = 1, 32, 4, 64
     worst = {}
@@ -196,14 +199,20 @@ def _flash_case(dev, gen):
         check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
               f"flash_attention {dtype} rows with no key: err {err}")
         worst[dtype] = max(worst[dtype], err)
+    # The served shape, in the kernel's layout and in the model's (the
+    # wrapper the model calls, with its own strides), and SDPA beside them.
     S = 512
     q = torch.randn(B, H, S, D, device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
     v = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
+    qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    check(torch.equal(flash_attention_op(qm, km, vm), flash_attention(q, k, v).transpose(1, 2)),
+          "flash_attention_op differs from flash_attention on the same inputs")
     library = timed("library_ms", lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 20)
     flops = 2 * B * H * S * S * D    # causal: half of 4 * B * H * S^2 * D
-    return {
+    moved = nbytes(q, k, v, q)
+    row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:66",
@@ -211,12 +220,65 @@ def _flash_case(dev, gen):
         "max_abs_err": worst[torch.bfloat16],
         "max_abs_err_f32": worst[torch.float32],
         **timed("ms", lambda: flash_attention(q, k, v), 20),
+        **timed("op_ms", lambda: flash_attention_op(qm, km, vm), 20),
         **timed("plain_ms", lambda: flash_attention_ref(q, k, v), 20),
         **library,
-        "bound_ms": max(flops / BF16_FLOPS, nbytes(q, k, v, q) / HBM_BYTES_PER_S) * 1e3,
-        "bound_by": "operations" if flops / BF16_FLOPS > nbytes(q, k, v, q) / HBM_BYTES_PER_S
+        "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
         else "bytes",
     }
+    # A long prompt, where the products and not the bytes bound the call.
+    S = 2048
+    q = torch.randn(B, H, S, D, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
+    err = max_err(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+    check(err <= TOL[torch.bfloat16], f"flash_attention bf16 S={S}: err {err}")
+    flops = 2 * B * H * S * S * D
+    long = {"S": S, "max_abs_err": err,
+            **timed("ms", lambda: flash_attention(q, k, v), 20),
+            **timed("library_ms", lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True), 20),
+            "bound_ms": max(flops / BF16_FLOPS, nbytes(q, k, v, q) / HBM_BYTES_PER_S) * 1e3}
+    long["share_of_bound"] = long["bound_ms"] / long["ms"]
+    print(f"  flash_attention bf16 S={S} causal: ms={long['ms']:.5f} "
+          f"sdpa_ms={long['library_ms']:.5f} bound_ms={long['bound_ms']:.5f} (operations) "
+          f"share_of_bound={long['share_of_bound']:.3f} max_abs_err={err:.3e}", flush=True)
+    row["long_prompt"] = long
+    row["sass"] = _sass_counts("flash_fwd_wgmma", ("HGMMA", "HMMA"))
+    print(f"  flash_attention bf16 kernel SASS: {row['sass']}", flush=True)
+    check(row["sass"] is None or all(c["HGMMA"] > 0 for c in row["sass"].values()),
+          f"K3's bf16 kernel has no HGMMA instruction: {row['sass']}")
+    return row
+
+
+def _sass_counts(kernel: str, opcodes) -> dict:
+    """{function: {opcode: count}} over the built library's kernels whose
+    name contains ``kernel``, from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
+    import shutil
+
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    out = subprocess.run([tool, "-sass", str(build.build())], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            fn = name if kernel in name else None
+            if fn:
+                counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn:
+            ins = line.split("*/", 1)[-1].strip().split(" ", 1)[0]
+            op = ins.split(".", 1)[0]
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts
 
 
 def _decode_case(dev, gen):
@@ -262,12 +324,14 @@ def _decode_case(dev, gen):
     q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn(B, G, T, D, device=dev, generator=gen).to(torch.bfloat16)
     v = torch.randn(B, G, T, D, device=dev, generator=gen).to(torch.bfloat16)
+    # kv_len 300 as the model passes it, one int for the batch; and as a
+    # device array, the other form the wrapper takes.
     L = 300
-    kv_len = torch.full((B,), L, dtype=torch.int32, device=dev)
+    lens = torch.full((B,), L, dtype=torch.int32, device=dev)
     kp, vp = k[:, :, :L], v[:, :, :L]
     library = timed("library_ms", lambda: F.scaled_dot_product_attention(
         q[:, :, None], kp, vp, enable_gqa=True), 50)
-    read = nbytes(q, kv_len) + 2 * B * G * L * D * 2
+    read = nbytes(q) + 2 * B * G * L * D * 2
     return {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -275,8 +339,9 @@ def _decode_case(dev, gen):
         "shape": f"q ({B}, {H}, {D}) k,v ({B}, {G}, {T}, {D}) bf16 kv_len={L}",
         "max_abs_err": worst[torch.bfloat16],
         "max_abs_err_f32": worst[torch.float32],
-        **timed("ms", lambda: decode_attention(q, k, v, kv_len), 50),
-        **timed("plain_ms", lambda: decode_attention_ref(q, k, v, kv_len), 50),
+        **timed("ms", lambda: decode_attention(q, k, v, L), 50),
+        **timed("array_kv_len_ms", lambda: decode_attention(q, k, v, lens), 50),
+        **timed("plain_ms", lambda: decode_attention_ref(q, k, v, lens), 50),
         **library,
         "bound_ms": (read + nbytes(q)) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",

@@ -1,6 +1,8 @@
-// Shared pieces of the attention kernels (K2 decode, K3 prefill): dtype
-// conversion, warp reductions, and the online-softmax update of one query
-// row against one 32-key tile staged in shared memory.
+// Shared pieces of the CUDA-core attention kernels (K2 decode, and K3's
+// fp32 prefill; K3's bf16 kernel runs on the tensor cores and uses only
+// kNegInf, mean_v and allow_smem from here): dtype conversion, warp
+// reductions, and the online-softmax update of a few query rows against
+// one 32-key tile staged in shared memory.
 //
 // Layout of a row's state over a warp: lane l keeps output dims l, l+32,
 // ... (DPL of them, D <= 32 * DPL); the running max m and denominator l are
@@ -18,6 +20,13 @@ constexpr float kNegInf = -1e30f;  // the JAX kernels' NEG_INF
 constexpr int kTileK = 32;         // keys per tile: one per lane
 constexpr int kWarps = 8;          // warps per block
 constexpr int kThreads = kWarps * 32;
+
+// Row strides, in floats, of the staged q rows and K keys. q rows are
+// padded with zeros to a multiple of 8 floats, so float4 reads cover them;
+// K rows by 4 floats more, so that the 8 lanes of one float4 read phase,
+// each on its own key, hit 32 distinct banks.
+__host__ __device__ constexpr int q_stride(int D) { return (D + 7) / 8 * 8; }
+__host__ __device__ constexpr int k_stride(int D) { return q_stride(D) + 4; }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -58,9 +67,10 @@ __device__ __forceinline__ void row_init(RowState<DPL>& st) {
   for (int i = 0; i < DPL; ++i) st.acc[i] = 0.f;
 }
 
-// Stage keys [k0, k0 + kTileK) of one KV head into shared memory as fp32:
-// ks with row stride D + 1 (so lane j reading key j, dim d hits distinct
-// banks), vs with row stride D. Keys at or past `k_stop` are zero-filled.
+// Stage keys [k0, k0 + kTileK) of one KV head into shared memory as fp32,
+// one element at a time (any D and strides): ks with row stride
+// k_stride(D) (its pad columns are left as they are: the kernels zero them
+// once), vs with row stride D. Keys at or past `k_stop` are zero-filled.
 template <typename T>
 __device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const T* k, const T* v,
                                              long long kst, long long vst, int k0,
@@ -74,40 +84,129 @@ __device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const T* k, c
       kv = to_float(k[t * kst + d]);
       vv = to_float(v[t * vst + d]);
     }
-    ks[j * (D + 1) + d] = kv;
+    ks[j * k_stride(D) + d] = kv;
     vs[j * D + d] = vv;
   }
 }
 
-// Online-softmax update of one row with the staged tile. `valid` says
-// whether this lane's key is unmasked; `nkeys` keys of the tile exist.
-// Masked scores are set to kNegInf exactly as the JAX kernels do, so a row
-// whose first tiles are wholly masked is reset (alpha = 0) once a valid key
-// arrives.
-template <int DPL>
-__device__ __forceinline__ void row_tile(RowState<DPL>& st, const float* qrow,
-                                         const float* ks, const float* vs, int D,
-                                         bool valid, float scale, int lane, int nkeys) {
-  const float* krow = ks + lane * (D + 1);
-  float s = 0.f;
-  for (int d = 0; d < D; ++d) s = fmaf(qrow[d], krow[d], s);
-  s = valid ? s * scale : kNegInf;
-  const float m_new = fmaxf(st.m, warp_max(s));
-  const float alpha = __expf(st.m - m_new);
-  const float p = __expf(s - m_new);
-  st.l = st.l * alpha + warp_sum(p);
+constexpr int kMaxChunks = 4;  // 16-byte chunks of K (and V) per thread: fp32 D = 128
+
+// One step's keys of K and V (up to kMaxChunks 16-byte chunks per thread)
+// in registers: where D and the row strides are whole 16-byte chunks and
+// the bases 16-byte aligned, the fast way to stage keys, and split in two
+// so that a kernel can keep the next keys' loads in flight while it uses
+// the current ones.
+struct TileRegs {
+  uint4 k[kMaxChunks], v[kMaxChunks];
+};
+
+template <typename T>
+__device__ __forceinline__ void fetch_tile(TileRegs& t, const T* kb, const T* vb,
+                                           long long kst, long long vst, int k0, int k_stop,
+                                           int D, int n_keys) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int cpr = D / kVec;  // chunks per key row
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) st.acc[i] *= alpha;
-  for (int j = 0; j < nkeys; ++j) {
-    const float pj = __shfl_sync(0xffffffffu, p, j);
-    const float* vrow = vs + j * D;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) st.acc[i] = fmaf(pj, vrow[d], st.acc[i]);
+  for (int c = 0; c < kMaxChunks; ++c) {
+    const int idx = threadIdx.x + c * kThreads;
+    const int j = idx / cpr;
+    const int d0 = (idx - j * cpr) * kVec;
+    t.k[c] = t.v[c] = make_uint4(0, 0, 0, 0);
+    if (idx < n_keys * cpr && k0 + j < k_stop) {
+      t.k[c] = *reinterpret_cast<const uint4*>(kb + (k0 + j) * kst + d0);
+      t.v[c] = *reinterpret_cast<const uint4*>(vb + (k0 + j) * vst + d0);
     }
   }
-  st.m = m_new;
+}
+
+// The keys as fp32 in shared memory, laid out as load_kv_tile lays out a
+// tile (so key group g's tile starts at key 32 g).
+template <typename T>
+__device__ __forceinline__ void store_tile(const TileRegs& t, float* ks, float* vs, int D,
+                                           int n_keys) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int cpr = D / kVec;
+#pragma unroll
+  for (int c = 0; c < kMaxChunks; ++c) {
+    const int idx = threadIdx.x + c * kThreads;
+    if (idx >= n_keys * cpr) continue;
+    const int j = idx / cpr;
+    const int d0 = (idx - j * cpr) * kVec;
+    const T* ke = reinterpret_cast<const T*>(&t.k[c]);
+    const T* ve = reinterpret_cast<const T*>(&t.v[c]);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      ks[j * k_stride(D) + d0 + e] = to_float(ke[e]);
+      vs[j * D + d0 + e] = to_float(ve[e]);
+    }
+  }
+}
+
+// Online-softmax update of NR consecutive query rows (at `q`, row stride
+// q_stride(D)) with the staged tile. Lane j scores key j, and each K float4
+// and V value read from shared memory serves all NR rows. `valid[r]` says
+// whether this lane's key is unmasked for row r; masked scores are set to
+// kNegInf exactly as the JAX kernels do, so a row whose first tiles are
+// wholly masked is reset (alpha = 0) once a valid key arrives. P V runs
+// over all kTileK keys: keys past the tile's end are staged as zeros, which
+// their p multiplies. `pw` is the warp's NR x 32 floats that hand each
+// lane's p to every lane.
+template <int DPL, int NR>
+__device__ __forceinline__ void rows_tile(RowState<DPL> (&st)[NR], const float* q,
+                                          const float* ks, const float* vs, int D,
+                                          const bool (&valid)[NR], float scale, int lane,
+                                          float* pw) {
+  const int qs = q_stride(D);
+  const float4* krow = reinterpret_cast<const float4*>(ks + lane * k_stride(D));
+  float sa[NR], sb[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) sa[r] = sb[r] = 0.f;
+#pragma unroll 4
+  for (int c = 0; c < qs / 4; ++c) {
+    const float4 kv = krow[c];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const float4 qv = reinterpret_cast<const float4*>(q + r * qs)[c];
+      sa[r] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, sa[r]));
+      sb[r] = fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, sb[r]));
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < NR; ++r) {
+    const float s = valid[r] ? (sa[r] + sb[r]) * scale : kNegInf;
+    const float m_new = fmaxf(st[r].m, warp_max(s));
+    const float alpha = __expf(st[r].m - m_new);
+    const float p = __expf(s - m_new);
+    st[r].l = st[r].l * alpha + warp_sum(p);
+    st[r].m = m_new;
+    pw[r * 32 + lane] = p;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) st[r].acc[i] *= alpha;
+  }
+  __syncwarp();
+  const float4* p4 = reinterpret_cast<const float4*>(pw);
+#pragma unroll
+  for (int j4 = 0; j4 < kTileK / 4; ++j4) {
+    float4 p[NR];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) p[r] = p4[r * (32 / 4) + j4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = lane + 32 * i;
+        if (d < D) {
+          const float vd = vs[(4 * j4 + e) * D + d];
+#pragma unroll
+          for (int r = 0; r < NR; ++r) {
+            const float pe = e == 0 ? p[r].x : e == 1 ? p[r].y : e == 2 ? p[r].z : p[r].w;
+            st[r].acc[i] = fmaf(pe, vd, st[r].acc[i]);
+          }
+        }
+      }
+    }
+  }
+  __syncwarp();  // pw is rewritten by the next tile
 }
 
 // What the plain versions give a query row that sees no key: softmax over
@@ -121,7 +220,7 @@ __device__ __forceinline__ float mean_v(const T* v, long long vst, int Tk, int d
 }
 
 // Raise a kernel's dynamic shared-memory limit when it needs more than the
-// default 48 KB (only D = 128 with many rows does).
+// default 48 KB.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

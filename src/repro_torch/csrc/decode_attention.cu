@@ -9,165 +9,269 @@
 //
 // Bound on the H100: bytes. A step must read the valid cache once,
 // 2 * kv_len * G * D * itemsize bytes per sequence and layer, over
-// 3.35 TB/s; the arithmetic is R multiply-adds per loaded element.
+// 3.35 TB/s; the arithmetic is R multiply-adds per loaded element. At the
+// served sizes (a few hundred keys, 4 KV heads) the call is far below a
+// microsecond of traffic, so what it costs is launch and latency.
 //
-// Design: B * G blocks alone cannot fill 132 SMs, so the cache is split
-// across a (splits, G, B) grid (split-KV) and a second, small kernel
-// combines the partial (max, denominator, accumulator) triples. Inside a
-// block the R grouped heads are the rows: each 32-key tile of K and V is
-// loaded once into shared memory and used by all R heads (one warp per
-// head). Blocks whose split starts at or past kv_len exit before loading
-// anything, so a step reads only the valid cache, not max_len. Any T works.
-// A row with kv_len <= 0 sees no key: every split exits, and the combine
-// kernel writes what the plain version gives there, the mean of V over the
-// whole cache [0, T) (softmax over uniform -1e30 scores).
+// Design: one launch, no scratch in global memory. B * G alone cannot
+// fill 132 SMs, so each (KV head, sequence) gets a thread-block cluster of
+// C <= 8 blocks along the cache (grid (C, G, B), cluster (C, 1, 1)). Block
+// `rank` takes keys [rank * split, (rank + 1) * split) of [0, kv_len[b]),
+// split being ceil(kv_len / C) rounded up to whole 32-key tiles, so a
+// sequence's work spreads over its cluster whatever its length. Inside a
+// block the R grouped heads are the rows, two (four when R > 16) to a warp,
+// so each key read from shared memory serves several heads; lane j scores
+// key j, fp32 on the CUDA cores (at R = 8 a tensor-core tile would be
+// mostly empty, and the call is bound by latency, not arithmetic). When
+// the rows need fewer than 8 warps, the spare warps take the next 32-key
+// tiles at the same time (up to 4 tiles a step), each warp group with its
+// own partial. Keys come in as 16-byte loads into registers, the next
+// step's loads in flight while the current one is used. Each warp group
+// writes its partial (max, denominator, accumulator) straight into rank
+// 0's shared memory through distributed shared memory, so no block waits
+// on a remote read; one release/acquire cluster barrier hands the partials
+// over, and rank 0 combines them and writes O. (A relaxed cluster barrier,
+// arrived at on entry and waited on just before those writes, makes sure
+// every block of the cluster has started.) A block whose split starts at
+// or past kv_len loads nothing and publishes an empty partial (m = -1e30,
+// l = 0), but still reaches every barrier. A row with kv_len <= 0 sees no
+// key, and rank 0 writes what the plain version gives there, the mean of
+// V over the whole cache [0, T) (softmax over uniform -1e30 scores). Any T
+// works; kv_len comes per sequence from a device array, or as one value
+// for every sequence.
+#include <cooperative_groups.h>
+#include <cstdint>
+
 #include "attention_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace repro;
 
-constexpr int kMaxRowsPerWarp = 4;  // R <= kWarps * kMaxRowsPerWarp = 32
+constexpr int kMaxGroup = 32;       // R <= kWarps * 4
+constexpr int kMaxCluster = 8;      // blocks per cluster, the portable limit
 
-template <typename T, int DPL>
+constexpr int kMaxKeyGroups = 4;    // 32-key tiles a block works on at once
+constexpr int kMaxQPerThread = kMaxGroup * 128 / kThreads;  // staged q floats per thread
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// NR: query rows per warp (2, or 4 when R > 16), so each loaded key serves
+// NR heads; ceil(R / NR) warps cover the rows. KG such groups of warps work
+// on KG consecutive 32-key tiles at once, each keeping its own partial.
+template <typename T, int DPL, int NR>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_len,
-                    float* __restrict__ m_part, float* __restrict__ l_part,
-                    float* __restrict__ acc_part, int H, int G, int Tk, int D,
-                    long long qsb, long long qsh, long long ksb, long long kst,
-                    long long ksg, long long vsb, long long vst, long long vsg,
-                    int n_splits, int split_len, float scale) {
-  extern __shared__ float smem[];
-  const int split = blockIdx.x;
+decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ kv_len_ptr,
+                      int kv_len_val, T* __restrict__ o, int H, int G, int Tk, int D,
+                      long long qsb, long long qsh, long long ksb, long long kst,
+                      long long ksg, long long vsb, long long vst, long long vsg,
+                      long long osb, long long osh, float scale, int vec, int KG) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  // The first cluster barrier only says that every block has started (so
+  // its shared memory may be written); it is waited on just before that.
+  cluster_arrive_relaxed();
+  const int C = gridDim.x;            // the cluster spans the grid's x axis
+  const int rank = blockIdx.x;
   const int g = blockIdx.y;
   const int b = blockIdx.z;
   const int R = H / G;
-  const int len = min(kv_len[b], Tk);
-  const int s_begin = split * split_len;
-  if (s_begin >= len) return;  // uniform over the block, before any barrier
-  const int s_end = min(s_begin + split_len, len);
+  const int len = min(kv_len_ptr ? kv_len_ptr[b] : kv_len_val, Tk);
+  const int split = len > 0 ? ((len + C - 1) / C + kTileK - 1) / kTileK * kTileK : 0;
+  const int s_begin = rank * split;
+  const int s_end = min(s_begin + split, len);
 
-  float* qs = smem;                    // R x D
-  float* ks = qs + R * D;              // kTileK x (D + 1)
-  float* vs = ks + kTileK * (D + 1);   // kTileK x D
+  const int QS = q_stride(D), KS = k_stride(D);
+  const int wpg = (R + NR - 1) / NR;   // warps per key group
+  const int RP = wpg * NR;             // rows padded to whole warps' worth
+  const int step = KG * kTileK;        // keys per step
+  const int P = C * KG;                // partials per row
+  float* qs = smem;                    // RP x QS
+  float* ks = qs + RP * QS;            // step x KS
+  float* vs = ks + step * KS;          // step x D
+  float* pbuf = vs + step * D;         // kWarps x NR x 32: each warp's p
+  float* pm = pbuf + kThreads * NR;    // P x R: every partial max (rank 0's copy)
+  float* pl = pm + P * R;              // P x R: partial denominators
+  float* pacc = pl + P * R;            // P x R x D: partial accumulators
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int grp = warp / wpg;          // key group; warps past KG groups idle
+  const int row0 = (warp - grp * wpg) * NR;
 
   const T* qb = q + b * qsb + (long long)g * R * qsh;
-  for (int idx = threadIdx.x; idx < R * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    qs[idx] = to_float(qb[r * qsh + d]);
-  }
   const T* kb = k + b * ksb + g * ksg;
   const T* vb = v + b * vsb + g * vsg;
 
-  RowState<DPL> st[kMaxRowsPerWarp];
+  RowState<DPL> st[NR];
 #pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i) row_init(st[i]);
+  for (int i = 0; i < NR; ++i) row_init(st[i]);
 
-  for (int k0 = s_begin; k0 < s_end; k0 += kTileK) {
-    __syncthreads();
-    load_kv_tile(ks, vs, kb, vb, kst, vst, k0, s_end, D);
-    __syncthreads();
-    const int nkeys = min(kTileK, s_end - k0);
-    const bool valid = k0 + lane < s_end;
+  if (s_begin < s_end) {  // uniform over the block
+    TileRegs next;        // the first step's loads go out with q's
+    if (vec) fetch_tile(next, kb, vb, kst, vst, s_begin, s_end, D, step);
+    // q rows (zero in the padded rows and columns): all loads first, then
+    // the stores, so the loads are in flight together; and K's pad columns.
+    float qv[kMaxQPerThread];
 #pragma unroll
-    for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-      const int r = warp + i * kWarps;
-      if (r < R) row_tile<DPL>(st[i], qs + r * D, ks, vs, D, valid, scale, lane, nkeys);
+    for (int i = 0; i < kMaxQPerThread; ++i) {
+      const int idx = threadIdx.x + i * kThreads;
+      const int r = idx / QS;
+      const int d = idx - r * QS;
+      qv[i] = idx < RP * QS && r < R && d < D ? to_float(qb[r * qsh + d]) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kMaxQPerThread; ++i)
+      if (threadIdx.x + i * kThreads < RP * QS) qs[threadIdx.x + i * kThreads] = qv[i];
+    for (int idx = threadIdx.x; idx < step * (QS - D); idx += kThreads) {
+      const int j = idx / (QS - D);
+      ks[j * KS + D + idx - j * (QS - D)] = 0.f;
+    }
+    for (int k0 = s_begin; k0 < s_end; k0 += step) {
+      __syncthreads();  // the previous step is consumed
+      if (vec) {
+        store_tile<T>(next, ks, vs, D, step);
+        if (k0 + step < s_end) fetch_tile(next, kb, vb, kst, vst, k0 + step, s_end, D, step);
+      } else {
+        for (int t = 0; t < KG; ++t)
+          load_kv_tile(ks + t * kTileK * KS, vs + t * kTileK * D, kb, vb, kst, vst,
+                       k0 + t * kTileK, s_end, D);
+      }
+      __syncthreads();
+      const int t0 = k0 + grp * kTileK;  // this group's tile
+      bool valid[NR];
+#pragma unroll
+      for (int i = 0; i < NR; ++i) valid[i] = t0 + lane < s_end;
+      if (grp < KG && t0 < s_end)
+        rows_tile<DPL, NR>(st, qs + row0 * QS, ks + grp * kTileK * KS, vs + grp * kTileK * D,
+                           D, valid, scale, lane, pbuf + warp * NR * 32);
     }
   }
 
+  // Push the partial (empty when this split holds no key) into rank 0's
+  // shared memory; the release/acquire barrier then hands it over.
+  cluster_wait();
+  float* pm0 = cluster.map_shared_rank(pm, 0);
+  float* pl0 = cluster.map_shared_rank(pl, 0);
+  float* pacc0 = cluster.map_shared_rank(pacc, 0);
+  const int slot = rank * KG + grp;
 #pragma unroll
-  for (int i = 0; i < kMaxRowsPerWarp; ++i) {
-    const int r = warp + i * kWarps;
-    if (r >= R) continue;
-    const long long idx = ((long long)b * H + g * R + r) * n_splits + split;
+  for (int i = 0; i < NR; ++i) {
+    const int r = row0 + i;
+    if (grp >= KG || r >= R) continue;
     if (lane == 0) {
-      m_part[idx] = st[i].m;
-      l_part[idx] = st[i].l;
+      pm0[slot * R + r] = st[i].m;
+      pl0[slot * R + r] = st[i].l;
     }
 #pragma unroll
     for (int j = 0; j < DPL; ++j) {
       const int d = lane + 32 * j;
-      if (d < D) acc_part[idx * D + d] = st[i].acc[j];
+      if (d < D) pacc0[(slot * R + r) * D + d] = st[i].acc[j];
+    }
+  }
+  cluster.sync();
+  if (rank != 0) return;
+
+  T* ob = o + b * osb + (long long)g * R * osh;
+  for (int r = warp; r < R; r += kWarps) {
+    if (len <= 0) {  // no visible key
+      for (int d = lane; d < D; d += 32) ob[r * osh + d] = from_float<T>(mean_v(vb, vst, Tk, d));
+      continue;
+    }
+    float m = kNegInf;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster * kMaxKeyGroups; ++c)
+      if (c < P) m = fmaxf(m, pm[c * R + r]);
+    float l = 0.f;
+    float acc[DPL];
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) acc[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kMaxCluster * kMaxKeyGroups; ++c) {
+      if (c >= P) break;
+      const float w = __expf(pm[c * R + r] - m);
+      l = fmaf(pl[c * R + r], w, l);
+      const float* pa = pacc + (c * R + r) * D;
+#pragma unroll
+      for (int j = 0; j < DPL; ++j) {
+        const int d = lane + 32 * j;
+        if (d < D) acc[j] = fmaf(pa[d], w, acc[j]);
+      }
+    }
+    const float inv = 1.f / fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < DPL; ++j) {
+      const int d = lane + 32 * j;
+      if (d < D) ob[r * osh + d] = from_float<T>(acc[j] * inv);
     }
   }
 }
 
-template <typename T>
-__global__ void decode_combine_kernel(const int* __restrict__ kv_len,
-                                      const float* __restrict__ m_part,
-                                      const float* __restrict__ l_part,
-                                      const float* __restrict__ acc_part,
-                                      const T* __restrict__ v, T* __restrict__ o, int H,
-                                      int G, int Tk, int D, long long vsb, long long vst,
-                                      long long vsg, long long osb, long long osh,
-                                      int n_splits, int split_len) {
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int len = min(kv_len[b], Tk);
-  if (len <= 0) {  // no visible key
-    const T* vb = v + b * vsb + (h / (H / G)) * vsg;
-    for (int d = threadIdx.x; d < D; d += blockDim.x)
-      o[b * osb + h * osh + d] = from_float<T>(mean_v(vb, vst, Tk, d));
-    return;
-  }
-  const int active = min(n_splits, (len + split_len - 1) / split_len);
-  const float* mp = m_part + (long long)bh * n_splits;
-  const float* lp = l_part + (long long)bh * n_splits;
-  const float* ap = acc_part + (long long)bh * n_splits * D;
-  float m = kNegInf;
-  for (int s = 0; s < active; ++s) m = fmaxf(m, mp[s]);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float l = 0.f, acc = 0.f;
-    for (int s = 0; s < active; ++s) {
-      const float w = __expf(mp[s] - m);
-      l = fmaf(lp[s], w, l);
-      acc = fmaf(ap[(long long)s * D + d], w, acc);
-    }
-    o[b * osb + h * osh + d] = from_float<T>(acc / fmaxf(l, 1e-30f));
-  }
-}
-
-template <typename T, int DPL>
-int launch(const void* q, const void* k, const void* v, const void* kv_len, void* o,
-           void* m_part, void* l_part, void* acc_part, int B, int H, int G, int Tk, int D,
-           const long long* s, int n_splits, int split_len, float scale,
-           cudaStream_t stream) {
+template <typename T, int DPL, int NR>
+int launch(const void* q, const void* k, const void* v, const void* kv_len_ptr,
+           int kv_len_val, void* o, int B, int H, int G, int Tk, int D, const long long* s,
+           int C, float scale, int vec, cudaStream_t stream) {
   const int R = H / G;
-  const size_t smem = sizeof(float) * (size_t)(R * D + kTileK * (D + 1) + kTileK * D);
-  auto kernel = decode_split_kernel<T, DPL>;
+  const int wpg = (R + NR - 1) / NR;
+  // As many key groups as the warps, the register staging and the cap allow.
+  const int cpr = (D * (int)sizeof(T) + 15) / 16;
+  int KG = kWarps / wpg < kMaxKeyGroups ? kWarps / wpg : kMaxKeyGroups;
+  while (KG > 1 && KG * kTileK * cpr > kMaxChunks * kThreads) --KG;
+  const size_t smem = sizeof(float) * (size_t)(wpg * NR * q_stride(D) +
+                                               KG * kTileK * (k_stride(D) + D) +
+                                               kThreads * NR + C * KG * R * (2 + D));
+  auto kernel = decode_cluster_kernel<T, DPL, NR>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(n_splits, G, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const int*)kv_len, (float*)m_part,
-      (float*)l_part, (float*)acc_part, H, G, Tk, D, s[0], s[1], s[2], s[3], s[4], s[5],
-      s[6], s[7], n_splits, split_len, scale);
-  err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, G, B);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, (const T*)q, (const T*)k, (const T*)v,
+                           (const int*)kv_len_ptr, kv_len_val, (T*)o, H, G, Tk, D, s[0],
+                           s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], scale, vec,
+                           KG);
   if (err != cudaSuccess) return (int)err;
-  const int threads = ((D + 31) / 32) * 32;
-  decode_combine_kernel<T><<<B * H, threads, 0, stream>>>(
-      (const int*)kv_len, (const float*)m_part, (const float*)l_part,
-      (const float*)acc_part, (const T*)v, (T*)o, H, G, Tk, D, s[5], s[6], s[7], s[8],
-      s[9], n_splits, split_len);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const void* kv_len, void* o,
-             void* m_part, void* l_part, void* acc_part, int B, int H, int G, int Tk,
-             int D, const long long* s, int n_splits, int split_len, float scale,
-             cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, const void* kv_len_ptr,
+             int kv_len_val, void* o, int B, int H, int G, int Tk, int D, const long long* s,
+             int C, float scale, cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  const int vec = D % kVec == 0 && ((uintptr_t)k & 15) == 0 && ((uintptr_t)v & 15) == 0 &&
+                  s[3] % kVec == 0 && s[2] % kVec == 0 && s[4] % kVec == 0 &&
+                  s[6] % kVec == 0 && s[5] % kVec == 0 && s[7] % kVec == 0;
+  if (H / G > 16) {
+    switch ((D + 31) / 32) {
+      case 1: return launch<T, 1, 4>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+      case 2: return launch<T, 2, 4>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+      case 3: return launch<T, 3, 4>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+      case 4: return launch<T, 4, 4>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   switch ((D + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, kv_len, o, m_part, l_part, acc_part, B, H, G, Tk, D, s, n_splits, split_len, scale, stream);
-    case 2: return launch<T, 2>(q, k, v, kv_len, o, m_part, l_part, acc_part, B, H, G, Tk, D, s, n_splits, split_len, scale, stream);
-    case 3: return launch<T, 3>(q, k, v, kv_len, o, m_part, l_part, acc_part, B, H, G, Tk, D, s, n_splits, split_len, scale, stream);
-    case 4: return launch<T, 4>(q, k, v, kv_len, o, m_part, l_part, acc_part, B, H, G, Tk, D, s, n_splits, split_len, scale, stream);
+    case 1: return launch<T, 1, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+    case 2: return launch<T, 2, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+    case 3: return launch<T, 3, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+    case 4: return launch<T, 4, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -176,21 +280,23 @@ int dispatch(const void* q, const void* k, const void* v, const void* kv_len, vo
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, in the order
 // q (b, h), k (b, t, g), v (b, t, g), o (b, h); the last dim is contiguous.
-// m_part and l_part hold B * H * n_splits floats, acc_part that times D.
+// kv_len: a (B,) int32 device array, or null and then kv_len_val for every
+// sequence. cluster: blocks per (KV head, sequence), 1..8.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
-                                       const void* kv_len, void* o, void* m_part,
-                                       void* l_part, void* acc_part, int dtype, int B,
-                                       int H, int G, int Tk, int D, long long qsb,
-                                       long long qsh, long long ksb, long long kst,
-                                       long long ksg, long long vsb, long long vst,
-                                       long long vsg, long long osb, long long osh,
-                                       int n_splits, int split_len, float scale,
+                                       const void* kv_len, int kv_len_val, void* o,
+                                       int dtype, int B, int H, int G, int Tk, int D,
+                                       long long qsb, long long qsh, long long ksb,
+                                       long long kst, long long ksg, long long vsb,
+                                       long long vst, long long vsg, long long osb,
+                                       long long osh, int cluster, float scale,
                                        void* stream) {
   const long long s[10] = {qsb, qsh, ksb, kst, ksg, vsb, vst, vsg, osb, osh};
   cudaStream_t st = (cudaStream_t)stream;
+  if (cluster < 1 || cluster > kMaxCluster || G < 1 || H % G || H / G > kMaxGroup)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, kv_len, o, m_part, l_part, acc_part, B, H, G, Tk, D, s, n_splits, split_len, scale, st);
+    return dispatch<float>(q, k, v, kv_len, kv_len_val, o, B, H, G, Tk, D, s, cluster, scale, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, kv_len, o, m_part, l_part, acc_part, B, H, G, Tk, D, s, n_splits, split_len, scale, st);
+    return dispatch<__nv_bfloat16>(q, k, v, kv_len, kv_len_val, o, B, H, G, Tk, D, s, cluster, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,44 +6,77 @@
 // (Pallas; grid (B, H, nQ, nK) with the running max / denominator /
 // accumulator carried in VMEM scratch across the sequential KV axis).
 //
-// Bound on the H100: operations at long prompts (causal 2 * B * H * S^2 * D
-// multiply-adds over the 989 TFLOP/s bf16 tensor-core peak), bytes at
-// short ones (q, k, v read once and o written once over 3.35 TB/s).
+// Bound on the H100: at the served shape (S = 512, D = 64, 32/4 heads)
+// bytes, q, k, v read once and o written once over 3.35 TB/s (1.4 us);
+// the causal products, 2 * B * H * S^2 * D flops over the 989 TFLOP/s bf16
+// tensor-core peak, take over from S ~ 660. At these sizes neither is what
+// a simple kernel hits first: one warpgroup per SM sub-partition waits on
+// every latency, so the design is about issuing few instructions per tile
+// and keeping several warpgroups in flight.
 //
-// Design: one block per (q tile of 32 rows, head, batch); the KV head is
-// h / (H / G). The TPU's sequential KV grid axis becomes a loop inside the
-// block: each 32-key tile of K and V is staged in shared memory as fp32
-// and used by all 32 rows (8 warps x 4 rows); a warp scores one key per
-// lane and keeps its rows' running max, denominator and accumulator in
-// registers. Tiles wholly above the causal diagonal or wholly outside the
-// window are never loaded. Ragged Sq and T are masked here, so any length
-// works (no power-of-two block search). A row that sees no key (a causal
-// position past T with a window, or before 0 through a negative offset)
-// gets what the plain version gives it: the mean of V over [0, T). This
-// first version runs on the CUDA cores; wgmma tiles fed by TMA are the
-// later step toward the bound.
+// Design (bf16, the served path): a block owns one 64-row q tile of one
+// head (64 rows is what a wgmma takes) and W warpgroups (W = 2) that split
+// its key tiles between them: tile j goes to warpgroup j % W, which halves
+// the longest block's chain of key tiles (the last q tile has 8 at S = 512)
+// and puts two warpgroups' latencies side by side. The TPU's sequential KV
+// grid axis becomes each warpgroup's loop over its 64-key tiles. Q is
+// loaded once; K and V tiles come by TMA (one thread issues a tile, an
+// mbarrier per slot counts its bytes) into a two-slot ring per warpgroup,
+// so the copy of a warpgroup's next tile runs under the products on its
+// current one. TMA writes the 128-byte swizzle that the wgmma descriptors
+// name, as 64-column blocks; where D is not a multiple of 64, or the
+// strides do not suit TMA, 16-byte cp.async copies write the same layout
+// (D zero-padded to 64 or 128). S = Q K^T is wgmma m64n64k16 with both
+// operands in shared memory (K-major); the online softmax (max, exp2, row
+// sum, rescale) runs in fp32 registers on the accumulator's layout, which
+// is also the layout of wgmma's register A operand, and O += P V is wgmma
+// m64nDk16 with V as an MN-major B operand. P goes to the tensor cores as a
+// bf16 high part and the bf16 rounding of what it leaves, two products per
+// k-step: bf16 P alone moved the served prefill logits past their 2e-2
+// check. At the end the warpgroups' partial (max, sum, O) meet in shared
+// memory. Key tiles wholly above the causal diagonal or outside the window
+// are never loaded, and only a tile that crosses the diagonal, a window
+// edge or the ragged end of T is masked. Blocks run the q tiles with the
+// most key tiles first, and the R = H / G heads that share a KV head are
+// neighbours, so their K/V tiles come from L2. Masked scores are -1e30 as
+// in the JAX kernel; a row that sees no key (a causal position past T with
+// a window, or before 0 through a negative offset) gets what the plain
+// version gives it, the mean of V over [0, T).
+//
+// fp32 inputs take the CUDA-core kernel below (fp32 scores from the loaded
+// values, 32-key tiles, one key per lane): TF32 would keep ~3 digits and
+// miss the fp32 tolerance. The choice is by dtype; neither is a fallback.
+#include <cuda.h>  // CUtensorMap; the driver's encoder is fetched at run time
+
+#include <cstdint>
+
 #include "attention_common.cuh"
 
 namespace {
 
 using namespace repro;
 
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
 constexpr int kRowsPerWarp = 4;
 constexpr int kTileQ = kWarps * kRowsPerWarp;
 
-template <typename T, int DPL>
+template <int DPL>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int H, int G, int Sq, int Tk, int D,
-                 long long qsb, long long qss, long long qsh,
-                 long long ksb, long long kst, long long ksg,
-                 long long vsb, long long vst, long long vsg,
-                 long long osb, long long oss, long long osh,
-                 int causal, int window, int q_offset, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                        // kTileQ x D
-  float* ks = qs + kTileQ * D;             // kTileK x (D + 1)
-  float* vs = ks + kTileK * (D + 1);       // kTileK x D
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o, int H, int G,
+                     int Sq, int Tk, int D, long long qsb, long long qss, long long qsh,
+                     long long ksb, long long kst, long long ksg,
+                     long long vsb, long long vst, long long vsg,
+                     long long osb, long long oss, long long osh,
+                     int causal, int window, int q_offset, float scale, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int QS = q_stride(D), KS = k_stride(D);
+  float* qs = smem;                        // kTileQ x QS
+  float* ks = qs + kTileQ * QS;            // kTileK x KS
+  float* vs = ks + kTileK * KS;            // kTileK x D
+  float* pbuf = vs + kTileK * D;           // kWarps x kRowsPerWarp x 32: each warp's p
 
   const int q0 = blockIdx.x * kTileQ;
   const int h = blockIdx.y;
@@ -52,15 +85,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
 
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + g * ksg;
-  const T* vb = v + b * vsb + g * vsg;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* kb = k + b * ksb + g * ksg;
+  const float* vb = v + b * vsb + g * vsg;
 
-  for (int idx = threadIdx.x; idx < kTileQ * D; idx += blockDim.x) {
-    const int r = idx / D;
-    const int d = idx - r * D;
+  // q rows (zero past Sq and in the pad columns), and K's pad columns.
+  for (int idx = threadIdx.x; idx < kTileQ * QS; idx += blockDim.x) {
+    const int r = idx / QS;
+    const int d = idx - r * QS;
     const int sq = q0 + r;
-    qs[idx] = sq < Sq ? to_float(qb[sq * qss + d]) : 0.f;
+    qs[idx] = sq < Sq && d < D ? qb[sq * qss + d] : 0.f;
+  }
+  for (int idx = threadIdx.x; idx < kTileK * (QS - D); idx += blockDim.x) {
+    const int j = idx / (QS - D);
+    ks[j * KS + D + idx - j * (QS - D)] = 0.f;
   }
 
   // Keys any row of this tile can see.
@@ -78,25 +116,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int k0 = k_begin; k0 < k_end; k0 += kTileK) {
     __syncthreads();  // the previous tile (and, first time, q) is consumed/ready
-    load_kv_tile(ks, vs, kb, vb, kst, vst, k0, Tk, D);
+    if (vec) {
+      TileRegs t;
+      fetch_tile(t, kb, vb, kst, vst, k0, Tk, D, kTileK);
+      store_tile<float>(t, ks, vs, D, kTileK);
+    } else {
+      load_kv_tile(ks, vs, kb, vb, kst, vst, k0, Tk, D);
+    }
     __syncthreads();
-    const int nkeys = min(kTileK, Tk - k0);
     const int t = k0 + lane;
+    bool valid[kRowsPerWarp];
 #pragma unroll
     for (int rr = 0; rr < kRowsPerWarp; ++rr) {
-      const int r = warp * kRowsPerWarp + rr;
-      const int sq = q0 + r;
-      if (sq < Sq) {  // uniform across the warp
-        const int p = sq + q_offset;
-        bool valid = t < Tk;
-        if (causal) valid = valid && t <= p;
-        if (window > 0) valid = valid && t > p - window;
-        row_tile<DPL>(st[rr], qs + r * D, ks, vs, D, valid, scale, lane, nkeys);
-      }
+      const int p = q0 + warp * kRowsPerWarp + rr + q_offset;
+      valid[rr] = t < Tk && (!causal || t <= p) && (window <= 0 || t > p - window);
     }
+    rows_tile<DPL, kRowsPerWarp>(st, qs + warp * kRowsPerWarp * QS, ks, vs, D, valid, scale,
+                                 lane, pbuf + warp * kRowsPerWarp * 32);
   }
 
-  T* ob = o + b * osb + h * osh;
+  float* ob = o + b * osb + h * osh;
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     const int sq = q0 + warp * kRowsPerWarp + rr;
@@ -108,7 +147,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
         const int d = lane + 32 * i;
-        if (d < D) ob[sq * oss + d] = from_float<T>(mean_v(vb, vst, Tk, d));
+        if (d < D) ob[sq * oss + d] = mean_v(vb, vst, Tk, d);
       }
       continue;
     }
@@ -116,39 +155,594 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
-      if (d < D) ob[sq * oss + d] = from_float<T>(st[rr].acc[i] * inv);
+      if (d < D) ob[sq * oss + d] = st[rr].acc[i] * inv;
     }
   }
 }
 
-template <typename T, int DPL>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
-           int Sq, int Tk, int D, const long long* s, int causal, int window,
-           int q_offset, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(kTileQ * D + kTileK * (D + 1) + kTileK * D);
-  auto kernel = flash_fwd_kernel<T, DPL>;
+template <int DPL>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
+               int Sq, int Tk, int D, const long long* s, int causal, int window,
+               int q_offset, float scale, int vec, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)(kTileQ * q_stride(D) + kTileK * k_stride(D) +
+                                               kTileK * D + kThreads * kRowsPerWarp);
+  auto kernel = flash_fwd_f32_kernel<DPL>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Sq + kTileQ - 1) / kTileQ, H, B);
   kernel<<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, G, Sq, Tk, D,
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, H, G, Sq, Tk, D,
       s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-      causal, window, q_offset, scale);
+      causal, window, q_offset, scale, vec);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
-             int Sq, int Tk, int D, const long long* s, int causal, int window,
-             int q_offset, float scale, cudaStream_t stream) {
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
+                 int Sq, int Tk, int D, const long long* s, int causal, int window,
+                 int q_offset, float scale, int vec, cudaStream_t stream) {
   switch ((D + 31) / 32) {
-    case 1: return launch<T, 1>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, stream);
-    case 2: return launch<T, 2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, stream);
-    case 3: return launch<T, 3>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, stream);
-    case 4: return launch<T, 4>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, stream);
+    case 1: return launch_f32<1>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 2: return launch_f32<2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 3: return launch_f32<3>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 4: return launch_f32<4>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma), K/V rings filled by TMA or cp.async
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;                     // q rows and keys per tile
+constexpr int kWgThreads = 128;               // one warpgroup
+constexpr int kBlockBytes = kTile * 128;      // one 64 x 64 bf16 column block
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte copy global -> shared; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 x) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(dst), "r"(x.x), "r"(x.y), "r"(x.z), "r"(x.w) : "memory");
+}
+// Generic-proxy writes (cp.async, st.shared) made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of a wgmma's accumulator
+// across the wait that ends it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, one MUFU op, denormals to 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// mbarrier and TMA (cp.async.bulk.tensor) for the K/V ring.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+// One (64 x 64) bf16 box of a 4-D tensor map at coordinates (c0 = column,
+// c1 = row, c2 = head, c3 = batch), written 128-byte swizzled at `dst`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset (between 64-element blocks of an MN-major operand; unused for
+// K-major) and stride byte offset (between 8-row groups), in 16-byte units.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// S += Q K^T: A and B from shared memory, both K-major (no transpose).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O += P V: A (P) from registers, B (V) from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P V: A (P) from registers, B (V) from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_pv(float (&d)[DP / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (DP == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Issue and commit O += (P_hi + P_lo) V for one 64-key tile: 16 keys per
+// k-step, V MN-major (D contiguous) at shared address `vt`.
+template <int DP>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&pa)[4][4],
+                                         const uint32_t (&pb)[4][4], uint32_t vt) {
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const uint64_t dv = sw128_desc(vt + t * 16 * 128, kBlockBytes, 1024);
+    wgmma_pv<DP>(acc, pa[t], dv);
+    wgmma_pv<DP>(acc, pb[t], dv);
+  }
+  wgmma_commit();
+}
+
+// Stage rows [0, 64) of a (rows, D) bf16 tile into shared memory as DP / 64
+// swizzled column blocks: row r's 16-byte chunk c of a block lands at
+// r * 128 + ((c ^ (r % 8)) * 16), the layout TMA's SWIZZLE_128B writes and
+// the descriptors above read. Rows at or past `nvalid` and columns at or
+// past D are zeros. `vec`: rows are 16-byte aligned and D % 8 == 0, so each
+// chunk is one cp.async; otherwise chunks are gathered element by element.
+template <int DP, int THREADS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src, long long rstride,
+                                          int nvalid, int D, bool vec, int tid) {
+  constexpr int kChunks = DP / 8;                 // 16-byte chunks per row
+  for (int i = tid; i < kTile * kChunks; i += THREADS) {
+    const int r = i / kChunks;                    // kChunks is a power of two
+    const int c = i % kChunks;
+    const uint32_t at = dst + (c / 8) * kBlockBytes + r * 128 + (((c % 8) ^ (r % 8)) << 4);
+    const int d0 = c * 8;
+    const bool in = r < nvalid && d0 < D;
+    const bf16* row = src + (long long)r * rstride + d0;
+    if (vec) {
+      cp_async16(at, in ? row : src, in ? 16 : 0);
+    } else {
+      __align__(16) bf16 x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = (in && d0 + e < D) ? row[e] : __float2bfloat16(0.f);
+      st_shared16(at, *reinterpret_cast<uint4*>(x));
+    }
+  }
+}
+
+// Which (q tile, head, batch) block `idx` computes: q tiles from the last
+// (the most key tiles under the causal mask) to the first; within a q tile
+// batch-major, heads in order, so the R heads of one KV head are
+// neighbours and their K/V tiles come from L2.
+// kernels/flash_attention/flash_attention.py:block_order is the same map.
+__device__ __forceinline__ void block_coords(int idx, int n_qt, int H, int B, int& qt,
+                                             int& h, int& b) {
+  const int per = H * B;
+  qt = n_qt - 1 - idx / per;
+  const int rem = idx - (idx / per) * per;
+  b = rem / H;
+  h = rem - b * H;
+}
+
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kWgThreads) : "memory");
+}
+
+// W warpgroups share one q tile of one head and split its key tiles
+// between them (tile j goes to warpgroup j % W), each with its own
+// two-slot K/V ring and barrier; their partial (max, sum, O) meet in
+// shared memory at the end. That keeps several warps per scheduler busy
+// where one warpgroup alone would wait on every latency, and cuts the
+// longest block's chain of key tiles by W.
+template <int DP, int W>
+__global__ void __launch_bounds__(kWgThreads * W)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o, int B, int H,
+                       int G, int Sq, int Tk, int D, long long qsb, long long qss,
+                       long long qsh, long long ksb, long long kst, long long ksg,
+                       long long vsb, long long vst, long long vsg, long long osb,
+                       long long oss, long long osh, int causal, int window,
+                       int q_offset, float scale_log2, int n_qt, int vec, int tma,
+                       const __grid_constant__ CUtensorMap qmap,
+                       const __grid_constant__ CUtensorMap kmap,
+                       const __grid_constant__ CUtensorMap vmap) {
+  constexpr int kTileBytes = kTile * DP * 2;      // one 64-row tile, DP columns
+  constexpr int kNO = DP / 2;                     // O accumulator floats per thread
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms are 1024-B aligned
+  const int tid = threadIdx.x;
+  const int wg = tid / kWgThreads;
+  const int wt = tid % kWgThreads;
+  const uint32_t qs = base;
+  const uint32_t ring = base + (1 + 4 * wg) * kTileBytes;  // 2 slots of (K, V)
+  const uint32_t bars = base + (1 + 4 * W) * kTileBytes;  // Q's, then 2 per warpgroup
+
+  int qt, h, b;
+  block_coords(blockIdx.x, n_qt, H, B, qt, h, b);
+  const int q0 = qt * kTile;
+  const int g = h / (H / G);
+  const int warp = wt >> 5;
+  const int lane = tid & 31;
+  const int row0 = warp * 16 + (lane >> 2);       // this thread's rows: row0, row0 + 8
+  const int cq = (lane & 3) * 2;                  // and columns 8j + cq, 8j + cq + 1
+
+  const bf16* qb = q + b * qsb + h * qsh;
+  const bf16* kb = k + b * ksb + g * ksg;
+  const bf16* vb = v + b * vsb + g * vsg;
+
+  // Keys any row of this tile can see, in whole tiles.
+  const int p_lo = q0 + q_offset;
+  const int p_hi = min(q0 + kTile, Sq) - 1 + q_offset;
+  int k_end = Tk;
+  if (causal) k_end = min(k_end, p_hi + 1);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, p_lo - window + 1);
+  k_begin = (k_begin / kTile) * kTile;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kTile - 1) / kTile : 0;
+  const int my_tiles = n_tiles > wg ? (n_tiles - wg + W - 1) / W : 0;
+  auto slot_bar = [&](int i) { return bars + 8 * (1 + 2 * wg + i % 2); };
+  // This warpgroup's i-th key tile into slot i % 2: by TMA (one thread
+  // issues it, the slot's mbarrier counts its bytes) or by cp.async.
+  auto load_kv = [&](int i) {
+    const int k0 = k_begin + (wg + i * W) * kTile;
+    const uint32_t slot = ring + (i % 2) * 2 * kTileBytes;
+    if (tma) {
+      if (wt == 0) {
+        mbar_expect_tx(slot_bar(i), 2 * kTileBytes);
+#pragma unroll
+        for (int c = 0; c < DP / 64; ++c) {
+          tma_load(slot + c * kBlockBytes, &kmap, slot_bar(i), c * 64, k0, g, b);
+          tma_load(slot + kTileBytes + c * kBlockBytes, &vmap, slot_bar(i), c * 64, k0, g, b);
+        }
+      }
+    } else {
+      load_tile<DP, kWgThreads>(slot, kb + k0 * kst, kst, Tk - k0, D, vec, wt);
+      load_tile<DP, kWgThreads>(slot + kTileBytes, vb + k0 * vst, vst, Tk - k0, D, vec, wt);
+    }
+  };
+
+  if (tma) {
+    if (tid == 0) {
+      for (int i = 0; i < 1 + 2 * W; ++i) mbar_init(bars + 8 * i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      mbar_expect_tx(bars, kTileBytes);
+#pragma unroll
+      for (int c = 0; c < DP / 64; ++c)
+        tma_load(qs + c * kBlockBytes, &qmap, bars, c * 64, q0, h, b);
+    }
+    if (my_tiles > 0) load_kv(0);
+    mbar_wait(bars, 0);                           // Q landed
+  } else {
+    load_tile<DP, kWgThreads * W>(qs, qb + q0 * qss, qss, Sq - q0, D, vec, tid);
+    cp_async_commit();
+    if (my_tiles > 0) load_kv(0);
+    cp_async_commit();
+    cp_async_wait<1>();                           // Q landed for this thread
+    fence_async_shared();
+    __syncthreads();                              // ... and for every thread
+  }
+
+  float acc[kNO];
+#pragma unroll
+  for (int i = 0; i < kNO; ++i) acc[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+  for (int i = 0; i < my_tiles; ++i) {
+    if (tma) {
+      mbar_wait(slot_bar(i), (i / 2) & 1);        // tile i landed
+    } else {
+      cp_async_wait<0>();                         // tile i landed for this thread
+      fence_async_shared();
+    }
+    wg_barrier(1 + wg);                           // ... for the warpgroup; tile i-1 done
+    if (i + 1 < my_tiles) load_kv(i + 1);         // into the slot tile i-1 used
+    if (!tma) cp_async_commit();
+    const int k0 = k_begin + (wg + i * W) * kTile;
+    const uint32_t kt = ring + (i % 2) * 2 * kTileBytes;
+    const uint32_t vt = kt + kTileBytes;
+
+    // S = Q K^T over DP / 16 k-steps of 32 bytes inside each column block.
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < DP / 16; ++t) {
+      const uint32_t off = (t / 4) * kBlockBytes + (t % 4) * 32;
+      wgmma_ss_n64(s, sw128_desc(qs + off, 16, 1024), sw128_desc(kt + off, 16, 1024), t > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // Scale into the exp2 domain; mask (to -1e30, as the JAX kernel does)
+    // only a tile that needs it. Row r sees the tile's columns
+    // [lo_r, hi_r]; this thread's column e is (e / 4) * 8 + e % 2 + cq.
+#pragma unroll
+    for (int e = 0; e < 32; ++e) s[e] *= scale_log2;
+    const bool full = k0 + kTile <= Tk && (!causal || k0 + kTile - 1 <= p_lo) &&
+                      (window <= 0 || k0 > p_hi - window);
+    if (!full) {
+      int lo[2], hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int p = q0 + row0 + 8 * r + q_offset;
+        hi[r] = (causal ? min(p, Tk - 1) : Tk - 1) - k0 - cq;
+        lo[r] = (window > 0 ? p - window + 1 : 0) - k0 - cq;
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int c = (e / 4) * 8 + (e % 2), r = (e % 4) / 2;
+        if (c < lo[r] || c > hi[r]) s[e] = kNegInf;
+      }
+    }
+    float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      if ((e % 4) < 2) mx0 = fmaxf(mx0, s[e]);
+      else mx1 = fmaxf(mx1, s[e]);
+    }
+#pragma unroll
+    for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o2));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = ex2(m0 - mn0), a1 = ex2(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // P as wgmma's register A operand (k-step e / 8), split into a bf16
+    // high part and the bf16 rounding of what it leaves, so that P V keeps
+    // ~16 bits of P (bf16 P alone moved the served logits past the 2e-2
+    // check).
+    float sum0 = 0.f, sum1 = 0.f;
+    uint32_t pa[4][4], pb[4][4];
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const float mm = (e % 4) < 2 ? mn0 : mn1;
+      const float e0 = ex2(s[e] - mm), e1 = ex2(s[e + 1] - mm);
+      if ((e % 4) < 2) sum0 += e0 + e1;
+      else sum1 += e0 + e1;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(e0, e1);
+      pa[e / 8][(e % 8) / 2] = *reinterpret_cast<const uint32_t*>(&hi);
+      pb[e / 8][(e % 8) / 2] = pack_bf16(e0 - __low2float(hi), e1 - __high2float(hi));
+    }
+    l0 = l0 * a0 + sum0;                          // partial over this thread's columns
+    l1 = l1 * a1 + sum1;
+#pragma unroll
+    for (int e = 0; e < kNO; ++e) acc[e] *= (e % 4) < 2 ? a0 : a1;
+
+    fence_regs(acc);
+    wgmma_fence();
+    issue_pv<DP>(acc, pa, pb, vt);
+    wgmma_wait_all();
+    fence_regs(acc);
+  }
+  cp_async_wait<0>();
+
+  // Warpgroups 1.. leave (O, m, l) in their own ring, thread-major, and
+  // warpgroup 0 folds them into its own.
+  float* part = reinterpret_cast<float*>(smem_raw + (ring - raw));
+  if (W > 1) {
+    wg_barrier(1 + wg);                           // the ring's last tile is consumed
+    if (wg > 0) {
+#pragma unroll
+      for (int e = 0; e < kNO; ++e) part[e * kWgThreads + wt] = acc[e];
+      part[(kNO + 0) * kWgThreads + wt] = m0;
+      part[(kNO + 1) * kWgThreads + wt] = m1;
+      part[(kNO + 2) * kWgThreads + wt] = l0;
+      part[(kNO + 3) * kWgThreads + wt] = l1;
+    }
+    __syncthreads();
+    if (wg > 0) return;
+    float mw0[W], mw1[W];
+    float M0 = m0, M1 = m1;
+#pragma unroll
+    for (int w = 1; w < W; ++w) {
+      const float* pw = part + w * 4 * kTileBytes / 4;
+      mw0[w] = pw[(kNO + 0) * kWgThreads + wt];
+      mw1[w] = pw[(kNO + 1) * kWgThreads + wt];
+      M0 = fmaxf(M0, mw0[w]);
+      M1 = fmaxf(M1, mw1[w]);
+    }
+    float f0 = ex2(m0 - M0), f1 = ex2(m1 - M1);
+    l0 *= f0;
+    l1 *= f1;
+#pragma unroll
+    for (int e = 0; e < kNO; ++e) acc[e] *= (e % 4) < 2 ? f0 : f1;
+#pragma unroll
+    for (int w = 1; w < W; ++w) {
+      const float* pw = part + w * 4 * kTileBytes / 4;
+      f0 = ex2(mw0[w] - M0);
+      f1 = ex2(mw1[w] - M1);
+      l0 = fmaf(pw[(kNO + 2) * kWgThreads + wt], f0, l0);
+      l1 = fmaf(pw[(kNO + 3) * kWgThreads + wt], f1, l1);
+#pragma unroll
+      for (int e = 0; e < kNO; ++e)
+        acc[e] = fmaf(pw[e * kWgThreads + wt], (e % 4) < 2 ? f0 : f1, acc[e]);
+    }
+  }
+
+#pragma unroll
+  for (int o2 = 1; o2 <= 2; o2 <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o2);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o2);
+  }
+  bf16* ob = o + b * osb + h * osh;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int sq = q0 + row0 + half * 8;
+    if (sq >= Sq) continue;
+    const int p = sq + q_offset;                  // keys [lo, hi] are visible to this row
+    const int hi = causal ? min(p, Tk - 1) : Tk - 1;
+    const int lo = window > 0 ? max(0, p - window + 1) : 0;
+    bf16* orow = ob + sq * oss;
+    if (lo > hi) {
+      for (int jj = 0; jj < DP / 8; ++jj)
+        for (int e = 0; e < 2; ++e)
+          if (jj * 8 + cq + e < D)
+            orow[jj * 8 + cq + e] = __float2bfloat16(mean_v(vb, vst, Tk, jj * 8 + cq + e));
+      continue;
+    }
+    const float inv = 1.f / fmaxf(half ? l1 : l0, 1e-30f);
+#pragma unroll
+    for (int jj = 0; jj < DP / 8; ++jj) {
+      const int d = jj * 8 + cq;
+      const float x0 = acc[jj * 4 + half * 2] * inv, x1 = acc[jj * 4 + half * 2 + 1] * inv;
+      if (vec) {
+        if (d < D) *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(x0, x1);
+      } else {
+        if (d < D) orow[d] = __float2bfloat16(x0);
+        if (d + 1 < D) orow[d + 1] = __float2bfloat16(x1);
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
+// that the library links without -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 (B, heads, rows, D) tensor with element strides (row, head,
+// batch) as a 4-D map (D, rows, heads, B) read in (64 x 64) boxes,
+// 128-byte swizzled; rows and columns past the tensor read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads, int B,
+                long long s_row, long long s_head, long long s_batch) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_row * 2, (cuuint64_t)s_head * 2,
+                                 (cuuint64_t)s_batch * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)kTile, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP, int W>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
+                int Sq, int Tk, int D, const long long* s, int causal, int window,
+                int q_offset, float scale, int vec, cudaStream_t stream) {
+  // TMA where D fills whole 64-column boxes (and the strides suit it, which
+  // `vec` says); cp.async otherwise.
+  CUtensorMap maps[3] = {};
+  int tma = vec && D % 64 == 0;
+  if (tma) {
+    tma = tensor_map(&maps[0], q, D, Sq, H, B, s[1], s[2], s[0]) &&
+          tensor_map(&maps[1], k, D, Tk, G, B, s[4], s[5], s[3]) &&
+          tensor_map(&maps[2], v, D, Tk, G, B, s[7], s[8], s[6]);
+    if (!tma) return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = 1024 + (size_t)(1 + 4 * W) * kTile * DP * 2 + 8 * (1 + 2 * W);
+  auto kernel = flash_fwd_wgmma_kernel<DP, W>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_qt = (Sq + kTile - 1) / kTile;
+  kernel<<<n_qt * H * B, kWgThreads * W, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, B, H, G, Sq, Tk, D,
+      s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
+      causal, window, q_offset, scale * kLog2e, n_qt, vec, tma, maps[0], maps[1], maps[2]);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 
@@ -165,9 +759,20 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* stream) {
   const long long s[12] = {qsb, qss, qsh, ksb, kst, ksg, vsb, vst, vsg, osb, oss, osh};
   cudaStream_t st = (cudaStream_t)stream;
+  if (B <= 0 || H <= 0 || G <= 0 || H % G || D <= 0 || D > 128)
+    return (int)cudaErrorInvalidValue;
+  // 16-byte staging (and paired stores of O) needs D and every row stride
+  // in whole 16-byte chunks (8 bf16, 4 fp32) and 16-byte aligned bases.
+  const int per16 = dtype == 0 ? 4 : 8;
+  bool vec = D % per16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
+  for (int i = 0; i < 12; ++i) vec = vec && s[i] % per16 == 0;
   if (dtype == 0)
-    return dispatch<float>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, st);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, st);
-  return (int)cudaErrorInvalidValue;
+    return dispatch_f32(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale,
+                        vec, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D <= 64)
+    return launch_bf16<64, 2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
+                              scale, vec, st);
+  return launch_bf16<128, 2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
+                             scale, vec, st);
 }

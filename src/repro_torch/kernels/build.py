@@ -45,7 +45,7 @@ _SIGNATURES = {
         [_P] * 4 + [_I] * 7 + [_L] * 12 + [_I, _I, _I, _F, _P]
     ),
     "decode_attention_launch": (
-        [_P] * 8 + [_I] * 6 + [_L] * 10 + [_I, _I, _F, _P]
+        [_P] * 4 + [_I, _P] + [_I] * 6 + [_L] * 10 + [_I, _F, _P]
     ),
     "ssd_chunk_launch": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P],
 }

@@ -7,7 +7,7 @@ from typing import Union
 import torch
 
 from ..flash_attention.flash_attention import check_inputs
-from .decode_attention import kv_len_tensor, launch
+from .decode_attention import check_kv_len, launch
 from .ref import decode_attention_ref
 
 
@@ -27,11 +27,12 @@ def decode_attention_op(
             f"{tuple(k_cache.shape)}"
         )
     check_inputs("decode_attention_op", q, k_cache, v_cache, (B, H, G, D))
+    check_kv_len(kv_len, B)
     if q.device.type == "cpu":
         return decode_attention_op_ref(q, k_cache, v_cache, kv_len)
     out = torch.empty_like(q)
     launch(
-        q, k_cache, v_cache, kv_len_tensor(kv_len, B, q.device), out,
+        q, k_cache, v_cache, kv_len, out,
         (B, H, G, T, D),
         (q.stride(0), q.stride(2),
          k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),

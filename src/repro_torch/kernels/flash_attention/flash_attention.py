@@ -6,7 +6,7 @@ element strides, so the (B, H, S, D) layout here and the model's
 (B, S, H, D) layout (``ops.py``) launch it without a transposing copy."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -15,6 +15,16 @@ from .ref import flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+TILE_Q = 64              # q rows per block of the bf16 (tensor-core) kernel
+
+
+def block_order(n_qt: int, H: int, B: int) -> List[Tuple[int, int, int]]:
+    """(q tile, head, batch) of each block of the bf16 kernel, by block
+    index (``block_coords`` in ``csrc/flash_attention.cu``): the last q tile
+    first, since under the causal mask it has the most key tiles, and the
+    R = H / G heads that share a KV head next to each other."""
+    return [(n_qt - 1 - i // (H * B), i % (H * B) % H, i % (H * B) // H)
+            for i in range(n_qt * H * B)]
 
 
 def check_inputs(name: str, q, k, v, dims) -> None:

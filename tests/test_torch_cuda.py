@@ -59,26 +59,45 @@ def _close(out, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,window,D", [(64, 0, 64), (96, 16, 32), (200, 0, 128)])
-def test_flash_matches_plain(dev, dtype, S, window, D):
+@pytest.mark.parametrize("B,H,G,Sq,T,D,window,q_offset", [
+    (2, 8, 2, 64, 64, 64, 0, 0),
+    (2, 8, 2, 96, 96, 32, 16, 0),
+    (2, 8, 2, 200, 200, 128, 0, 0),
+    (1, 8, 2, 1000, 1000, 64, 0, 0),      # ragged, 16 key tiles: the ring wraps
+    (1, 8, 2, 512, 512, 128, 256, 0),     # D = 128 with a window
+    (1, 8, 2, 64, 576, 64, 0, 512),       # a chunk of a chunked prefill
+    (1, 4, 2, 100, 100, 20, 8, 0),        # D = 20: element staging, zero-padded
+])
+def test_flash_matches_plain(dev, dtype, B, H, G, Sq, T, D, window, q_offset):
     g = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn(2, 8, S, D, device=dev, generator=g).to(dtype)
-    k = torch.randn(2, 2, S, D, device=dev, generator=g).to(dtype)
-    v = torch.randn(2, 2, S, D, device=dev, generator=g).to(dtype)
+    q = torch.randn(B, H, Sq, D, device=dev, generator=g).to(dtype)
+    k = torch.randn(B, G, T, D, device=dev, generator=g).to(dtype)
+    v = torch.randn(B, G, T, D, device=dev, generator=g).to(dtype)
     n = flash_attention.launches
-    out = flash_attention(q, k, v, window=window)
+    out = flash_attention(q, k, v, window=window, q_offset=q_offset)
     assert flash_attention.launches == n + 1
-    _close(out, flash_attention_ref(q, k, v, window=window), dtype)
+    _close(out, flash_attention_ref(q, k, v, window=window, q_offset=q_offset), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kv", [1, 37, 300])
-def test_decode_matches_plain(dev, dtype, kv):
+@pytest.mark.parametrize("H,G,T,D,kv", [
+    (32, 4, 300, 64, (1, 1)),
+    (32, 4, 300, 64, (37, 18)),
+    (32, 4, 300, 64, (300, 150)),
+    (32, 4, 300, 64, 300),              # one length for both, passed by value
+    (32, 4, 4096, 64, (4000, 4000)),    # more key tiles per block than blocks
+    (32, 4, 300, 64, (0, 300)),         # no key beside a full cache
+    (4, 4, 300, 64, (37, 300)),         # R = 1
+    (32, 1, 300, 64, (37, 300)),        # R = 32
+    (32, 4, 300, 128, (37, 300)),       # D = 128
+    (8, 2, 100, 20, (37, 100)),         # D = 20: element staging in bf16
+])
+def test_decode_matches_plain(dev, dtype, H, G, T, D, kv):
     g = torch.Generator(device=dev).manual_seed(0)
-    q = torch.randn(2, 32, 64, device=dev, generator=g).to(dtype)
-    k = torch.randn(2, 4, 300, 64, device=dev, generator=g).to(dtype)
-    v = torch.randn(2, 4, 300, 64, device=dev, generator=g).to(dtype)
-    lens = torch.tensor([kv, max(1, kv // 2)], dtype=torch.int32, device=dev)
+    q = torch.randn(2, H, D, device=dev, generator=g).to(dtype)
+    k = torch.randn(2, G, T, D, device=dev, generator=g).to(dtype)
+    v = torch.randn(2, G, T, D, device=dev, generator=g).to(dtype)
+    lens = torch.tensor(kv, dtype=torch.int32, device=dev) if isinstance(kv, tuple) else kv
     n = decode_attention.launches
     out = decode_attention(q, k, v, lens)
     assert decode_attention.launches == n + 1

@@ -20,6 +20,13 @@ from repro.kernels.decode_attention import decode_attention_ref as jax_decode_re
 from repro.kernels.flash_attention import flash_attention_ref as jax_flash_ref
 from repro.kernels.flash_attention import flash_attention as jax_flash
 from repro.kernels.relay_copy import relay_assemble as jax_relay
+from repro_torch.kernels.decode_attention.decode_attention import (
+    MAX_CLUSTER,
+    TILE_K,
+    cluster_plan,
+    split_range,
+)
+from repro_torch.kernels.flash_attention.flash_attention import block_order
 from repro_torch.kernels import (
     decode_attention,
     decode_attention_op,
@@ -246,8 +253,50 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     assert launch_counts() == before
 
 
+# ---------------------------------------------------------------------------
+# The kernels' launch plans, which only the Python side can check here
+# ---------------------------------------------------------------------------
+_RNG_LENS = [int(x) for x in np.random.default_rng(11).integers(0, 4097, size=12)]
+
+
+@pytest.mark.parametrize("T,B,G", [(1024, 1, 4), (4096, 2, 4), (300, 1, 1), (64, 8, 8),
+                                   (4096, 1, 32)])
+@pytest.mark.parametrize("kv_len", [0, 1, 31, 32, 33, "T"] + _RNG_LENS)
+def test_decode_cluster_plan_covers_valid_keys_exactly(T, B, G, kv_len):
+    """K2's blocks of one cluster take disjoint, tile-aligned key ranges
+    whose union is exactly [0, kv_len), for the cluster size the wrapper
+    picks from the cache length and from the length itself."""
+    kv_len = T if kv_len == "T" else min(kv_len, T)
+    for n_keys in (T, kv_len):
+        cluster = cluster_plan(n_keys, B, G, 132)
+        assert 1 <= cluster <= MAX_CLUSTER
+        covered = []
+        for rank in range(cluster):
+            begin, end = split_range(rank, cluster, kv_len)
+            if end > begin:
+                assert begin % TILE_K == 0
+                covered.extend(range(begin, end))
+        assert covered == list(range(kv_len))
+
+
+@pytest.mark.parametrize("n_qt,H,B", [(8, 32, 1), (1, 4, 2), (16, 8, 2), (3, 6, 3)])
+def test_flash_block_order_visits_every_tile_once(n_qt, H, B):
+    """K3's block index -> (q tile, head, batch) map is a permutation, runs
+    the q tiles from the last to the first, and keeps the heads of one
+    (q tile, batch) next to each other."""
+    order = block_order(n_qt, H, B)
+    assert sorted(order) == sorted((t, h, b) for t in range(n_qt) for h in range(H)
+                                   for b in range(B))
+    tiles = [t for t, _, _ in order]
+    assert tiles == sorted(tiles, reverse=True)
+    for i in range(0, len(order), H):
+        assert [h for _, h, _ in order[i:i + H]] == list(range(H))
+
+
 @pytest.mark.parametrize("case", ["dtype", "group", "head_dim", "layout", "perm",
-                                  "ssd_dtype", "ssd_group"])
+                                  "ssd_dtype", "ssd_group", "mixed_dtype",
+                                  "decode_mixed_dtype", "decode_head_dim",
+                                  "decode_kv_len_shape"])
 def test_wrappers_reject_what_the_kernels_do_not_take(case):
     q = torch.zeros(1, 4, 8, 16)
     k = torch.zeros(1, 2, 8, 16)
@@ -264,6 +313,16 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
         elif case == "ssd_dtype":
             x = torch.zeros(2, 1, 8, 4, dtype=torch.half)
             ssd_chunk(x, torch.zeros(2, 1, 8), x, x)
+        elif case == "mixed_dtype":
+            flash_attention(q.bfloat16(), k, k)
+        elif case == "decode_mixed_dtype":
+            decode_attention(torch.zeros(1, 4, 16), k.bfloat16(), k, 4)
+        elif case == "decode_head_dim":
+            decode_attention(torch.zeros(1, 4, 160), torch.zeros(1, 2, 8, 160),
+                             torch.zeros(1, 2, 8, 160), 4)
+        elif case == "decode_kv_len_shape":     # one length per sequence, or one
+            decode_attention(torch.zeros(2, 4, 16), torch.zeros(2, 2, 8, 16),
+                             torch.zeros(2, 2, 8, 16), torch.tensor([1, 2, 3]))
         elif case == "ssd_group":       # 3 B/C groups do not divide 4 heads
             ssd_chunk_op(torch.zeros(1, 8, 4, 2), torch.zeros(1, 8, 4),
                          torch.zeros(1, 8, 3, 4), torch.zeros(1, 8, 3, 4), 8)

@@ -12,15 +12,20 @@ Phases, one result line each:
              ragged chunk, two B/C groups), and timed beside its bound, the
              plain version and one PyTorch library call where there is one;
              K3 also through the model-layout wrapper and at a 2048-token
-             prompt (its share of the operations bound), with the HGMMA count
-             `cuobjdump -sass` finds in its bf16 kernel
+             prompt (its share of the operations bound); K3 and K4 with the
+             HGMMA count `cuobjdump -sass` finds in their bf16 kernels; K4 on
+             its default route (the CUDA cores, which the model takes) and,
+             for every bf16 case they take, on the tensor cores; at the
+             served shape timed on both and inside ssd_op (K4 + the
+             inter-chunk scan + y_off) on both
   transfer   multipath_device_put / _get of a 1 GiB pinned bf16 tensor, bit-exact,
              over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
   serve      the dense path: TinyLlama-1.1B at full width in bf16 (random weights
              from a seed), a WeightManager sleep/wake round trip, then a
              FunctionalServer answering 4 requests with a prefix hit on the repeat
   serve-ssm  the SSM path: Mamba2-370m at full width in bf16, the same round
-             trip and requests, prefill through K4 and recurrent decode
+             trip and requests, prefill through K4 (every launch on its
+             default route) and recurrent decode
 
 Launch counts are zeroed just before each serve phase and read just after it.
 The script ends with the kernels JSON line (launches summed over the serve
@@ -172,7 +177,8 @@ def _relay_case(dev, gen):
 
 def _flash_case(dev, gen):
     import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention, flash_attention_op, flash_attention_ref
+    from repro_torch.kernels import build, flash_attention, flash_attention_op, \
+        flash_attention_ref
 
     B, H, G, D = 1, 32, 4, 64
     worst = {}
@@ -245,40 +251,11 @@ def _flash_case(dev, gen):
           f"sdpa_ms={long['library_ms']:.5f} bound_ms={long['bound_ms']:.5f} (operations) "
           f"share_of_bound={long['share_of_bound']:.3f} max_abs_err={err:.3e}", flush=True)
     row["long_prompt"] = long
-    row["sass"] = _sass_counts("flash_fwd_wgmma", ("HGMMA", "HMMA"))
+    row["sass"] = build.sass_counts("flash_fwd_wgmma", ("HGMMA", "HMMA"))
     print(f"  flash_attention bf16 kernel SASS: {row['sass']}", flush=True)
     check(row["sass"] is None or all(c["HGMMA"] > 0 for c in row["sass"].values()),
           f"K3's bf16 kernel has no HGMMA instruction: {row['sass']}")
     return row
-
-
-def _sass_counts(kernel: str, opcodes) -> dict:
-    """{function: {opcode: count}} over the built library's kernels whose
-    name contains ``kernel``, from ``cuobjdump -sass``; None where the
-    toolkit has no cuobjdump."""
-    import shutil
-
-    from repro_torch.kernels import build
-
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        return None
-    out = subprocess.run([tool, "-sass", str(build.build())], capture_output=True,
-                         text=True, timeout=300)
-    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-500:]}")
-    counts, fn = {}, None
-    for line in out.stdout.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :", 1)[1].strip()
-            fn = name if kernel in name else None
-            if fn:
-                counts[fn] = dict.fromkeys(opcodes, 0)
-        elif fn:
-            ins = line.split("*/", 1)[-1].strip().split(" ", 1)[0]
-            op = ins.split(".", 1)[0]
-            if op in counts[fn]:
-                counts[fn][op] += 1
-    return counts
 
 
 def _decode_case(dev, gen):
@@ -348,14 +325,15 @@ def _decode_case(dev, gen):
     }
 
 
-def _ssd_inputs(dev, gen, dtype, l, h, groups, decay):
+def _ssd_inputs(dev, gen, dtype, l, h, groups, decay, n=128):
     """x, a, B, C for K4 in the model's layout. ``fast``: a = -softplus(randn),
     about -0.8 a step, so a key 32 positions back weighs about 1e-11 and only
     the tiles on the diagonal show in the result. ``slow``: Mamba2's own
     decays, a = -A dt with A spread over U(1, 16) and dt over log-uniform
     [1e-3, 1e-1] (its init of A_log and dt_bias) by quantiles across the
     heads, dt jittered per position, and x times dt as the block forms it: many heads decay by only O(1-10) over a
-    256-position chunk, so every key tile and every state position counts."""
+    256-position chunk, so every key tile and every state position counts.
+    ``n`` is the state width (B and C's last dim)."""
     x = torch.randn(1, l, h, 64, device=dev, generator=gen)
     if decay == "fast":
         x, scale = x * 0.3, 0.3
@@ -368,86 +346,148 @@ def _ssd_inputs(dev, gen, dtype, l, h, groups, decay):
         dt = dt0 * (0.5 + torch.rand(1, l, h, device=dev, generator=gen))
         x, scale = x * dt[..., None], 0.5
         a = -A * dt
-    B = (torch.randn(1, l, groups, 128, device=dev, generator=gen) * scale).to(dtype)
-    C = (torch.randn(1, l, groups, 128, device=dev, generator=gen) * scale).to(dtype)
+    scale *= (128 / n) ** 0.25      # C . B keeps its spread at any state width n
+    B = (torch.randn(1, l, groups, n, device=dev, generator=gen) * scale).to(dtype)
+    C = (torch.randn(1, l, groups, n, device=dev, generator=gen) * scale).to(dtype)
     return x.to(dtype), a, B, C
 
 
 def _ssd_reach(x, a, B, C, Q):
-    """What a K4 that dropped distant work would get wrong in the first
-    chunk: max |part of y_diag from keys 64 or more positions below the row|
-    (a full y tile away) and max |part of the states from all but the last
-    32 positions|. A case can see such a fault only where these exceed its
+    """What a K4 that dropped distant work would get wrong in some chunk:
+    max |part of y_diag from keys min(64, Q / 2) or more positions below
+    the row| (a full y tile away; half the chunk where the chunk is one
+    tile) and max |part of the states from all but the last 32 positions
+    of a chunk|. A case can see such a fault only where these exceed its
     tolerance."""
     r = x.shape[2] // B.shape[2]
-    x, cs = x[:, :Q].float(), torch.cumsum(a[:, :Q].float(), 1)        # (1, Q, h)
-    Bh = B[:, :Q].float().repeat_interleave(r, 2)
-    Ch = C[:, :Q].float().repeat_interleave(r, 2)
-    i = torch.arange(x.shape[1], device=x.device)
-    far = (i[:, None] - i[None, :] >= 64)[None, :, :, None]
+    nc = -(-x.shape[1] // Q)
+
+    def chunks(t):                     # (1, l, ...) -> (nc, Q, ...), zero-padded
+        t = t.float()
+        t = torch.cat([t, t.new_zeros((1, nc * Q - t.shape[1]) + t.shape[2:])], 1)
+        return t.reshape((nc, Q) + t.shape[2:])
+
+    x, cs = chunks(x), torch.cumsum(chunks(a), 1)                      # (nc, Q, h)
+    Bh = chunks(B).repeat_interleave(r, 2)
+    Ch = chunks(C).repeat_interleave(r, 2)
+    i = torch.arange(Q, device=x.device)
+    far = (i[:, None] - i[None, :] >= min(64, Q // 2))[None, :, :, None]
     L = torch.where(far, torch.exp(cs[:, :, None] - cs[:, None, :]), 0.0)  # selected
     y_far = torch.einsum("bihn,bjhn,bijh,bjhp->bihp", Ch, Bh, L, x)
-    w = torch.exp(cs[:, -1:] - cs) * (i < x.shape[1] - 32)[None, :, None]
+    w = torch.exp(cs[:, -1:] - cs) * (i < Q - 32)[None, :, None]
     s_early = torch.einsum("bjhp,bjh,bjhn->bhpn", x, w, Bh)
     return y_far.abs().max().item(), s_early.abs().max().item()
 
 
 def _ssd_case(dev, gen):
-    from repro_torch.kernels import ssd_chunk_op, ssd_chunk_op_ref
+    from repro_torch.kernels import build, ssd_chunk, ssd_chunk_op, ssd_chunk_op_ref, ssd_op
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import route, tensor_cores_take
 
     worst = {}
     # the main path's shape, a ragged single chunk, two groups with a ragged
-    # last; fast decays as the random model's, and slow ones as Mamba2's
-    for dtype in (torch.bfloat16, torch.float32):
-        for l, h, groups, decay in ((512, 32, 1, "fast"), (200, 32, 1, "fast"),
-                                    (384, 32, 2, "fast"), (512, 32, 1, "slow"),
-                                    (384, 32, 2, "slow")):
-            x, a, B, C = _ssd_inputs(dev, gen, dtype, l, h, groups, decay)
-            out = ssd_chunk_op(x, a, B, C, 256)
-            ref = ssd_chunk_op_ref(x, a, B, C, 256)
+    # last; fast decays as the random model's, and slow ones as Mamba2's;
+    # then, in bf16, the other tensor-core shapes: a ragged length, jamba's
+    # N = 16, chunks of 64 and 128 (over 1024 positions, so that their slow
+    # draws reach 5x the tolerance in some chunk). Each case runs on the
+    # default route, which the model takes, and, where they take the shape,
+    # on the tensor cores.
+    cases = [(dtype, l, h, groups, decay, 128, 256)
+             for dtype in (torch.bfloat16, torch.float32)
+             for l, h, groups, decay in ((512, 32, 1, "fast"), (200, 32, 1, "fast"),
+                                         (384, 32, 2, "fast"), (512, 32, 1, "slow"),
+                                         (384, 32, 2, "slow"))]
+    cases += [(torch.bfloat16, l, 32, 1, decay, n, chunk)
+              for l, n, chunk in ((300, 128, 256), (512, 16, 256), (1024, 128, 64),
+                                  (1024, 128, 128))
+              for decay in ("fast", "slow")]
+    for dtype, l, h, groups, decay, n, chunk in cases:
+        x, a, B, C = _ssd_inputs(dev, gen, dtype, l, h, groups, decay, n)
+        ref = ssd_chunk_op_ref(x, a, B, C, chunk)
+        y_far, s_early = _ssd_reach(x, a, B, C, chunk)
+        # a kernel that dropped distant work must miss by 5x the tolerance
+        check(decay == "fast" or (y_far >= 5 * TOL[dtype]
+                                  and s_early >= 5 * TOL[torch.float32]),
+              f"ssd_chunk {dtype} l={l} chunk={chunk} {decay}: the case cannot see "
+              f"distant work")
+        default = route(dtype, chunk, x.shape[-1], n)
+        routes = [default] + ["tensor_cores"] * (
+            default != "tensor_cores" and tensor_cores_take(dtype, chunk, x.shape[-1], n))
+        for which in routes:
+            before = dict(ssd_chunk.route_launches)
+            out = ssd_chunk_op(x, a, B, C, chunk, which=which)
+            check(ssd_chunk.route_launches[which] == before[which] + 1,
+                  f"ssd_chunk took another route than {which}")
             # each output against its own dtype's tolerance: y_diag in x's
             # dtype, states and out_decay in fp32 on both sides
             errs = [max_err(o, r) for o, r in zip(out, ref)]
-            y_far, s_early = _ssd_reach(x, a, B, C, 256)
-            print(f"  ssd_chunk {str(dtype)[6:]} l={l} heads={h} groups={groups} "
-                  f"decay={decay} max_abs_err y={errs[0]:.3e} (tol {TOL[dtype]}) "
-                  f"states={errs[1]:.3e} out_decay={errs[2]:.3e} (tol "
+            print(f"  ssd_chunk {str(dtype)[6:]} l={l} heads={h} groups={groups} n={n} "
+                  f"chunk={chunk} decay={decay} route={which} max_abs_err y={errs[0]:.3e} "
+                  f"(tol {TOL[dtype]}) states={errs[1]:.3e} out_decay={errs[2]:.3e} (tol "
                   f"{TOL[torch.float32]}) reach y_far={y_far:.3e} "
                   f"states_early={s_early:.3e}", flush=True)
             check(all(o.shape == r.shape and o.dtype == r.dtype
                       and torch.isfinite(o).all().item() for o, r in zip(out, ref))
                   and all(e <= TOL[o.dtype] for e, o in zip(errs, out)),
-                  f"ssd_chunk {dtype} l={l} g={groups} {decay}: errors {errs}")
-            # a kernel that dropped distant work must miss by 5x the tolerance
-            check(decay == "fast" or (y_far >= 5 * TOL[dtype]
-                                      and s_early >= 5 * TOL[torch.float32]),
-                  f"ssd_chunk {dtype} l={l} {decay}: the case cannot see distant work")
-            worst[dtype] = max(worst.get(dtype, 0.0), *errs)
+                  f"ssd_chunk {dtype} l={l} g={groups} n={n} chunk={chunk} {decay} "
+                  f"{which}: errors {errs}")
+            worst[which, dtype] = max(worst.get((which, dtype), 0.0), *errs)
     # Mamba2-370m's prefill of a 512-token prompt, one layer
     x, a, B, C = _ssd_inputs(dev, gen, torch.bfloat16, 512, 32, 1, "fast")
     b, l, h, P = x.shape
     g, N, Q = B.shape[2], B.shape[3], 256
+    served = route(x.dtype, Q, P, N)        # the route ssd_op, and so the model, takes
     out = ssd_chunk_op(x, a, B, C, Q)
     nc = l // Q
     # causal halves: C B^T once per group, (scores) x and B^T x per head
     tri = Q * (Q + 1) // 2
     flops = 2 * b * nc * (g * tri * N + h * (tri * P + Q * N * P))
     moved = nbytes(x, a, B, C, *out)
-    return {
+    sass = build.sass_counts("ssd_chunk_tc", ("HGMMA", "HMMA"))
+    print(f"  ssd_chunk bf16 tensor-core kernel SASS: {sass}", flush=True)
+    check(sass is None or (sass and all(c["HGMMA"] > 0 for c in sass.values())),
+          f"K4's tensor-core kernel has no HGMMA instruction: {sass}")
+    row = {
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_chunk.cu",
         "replaces": "src/repro/kernels/ssd_chunk/ssd_chunk.py:44",
         "shape": f"x ({b}, {l}, {h}, {P}) bf16, a fp32, B,C ({b}, {l}, {g}, {N}) bf16, "
                  f"chunk {Q}",
-        "max_abs_err": worst[torch.bfloat16],
-        "max_abs_err_f32": worst[torch.float32],
+        # "ms" and "ssd_op_ms" time the route the served path takes, which
+        # "launches" counts; "tensor_cores_ms" the tensor-core kernel, forced
+        "served_route": served,
+        "max_abs_err": worst[served, torch.bfloat16],
+        "max_abs_err_f32": worst[route(torch.float32, Q, P, N), torch.float32],
+        "max_abs_err_tensor_cores": worst["tensor_cores", torch.bfloat16],
         **timed("ms", lambda: ssd_chunk_op(x, a, B, C, Q), 20),
+        **timed("tensor_cores_ms",
+                lambda: ssd_chunk_op(x, a, B, C, Q, which="tensor_cores"), 20),
         **timed("plain_ms", lambda: ssd_chunk_op_ref(x, a, B, C, Q), 20),
+        **timed("ssd_op_ms", lambda: ssd_op(x, a, B, C, Q), 20),
         "library_ms": None,            # no single PyTorch call computes it
         "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
         else "bytes",
+        "sass": sass,
     }
+    with _tensor_cores_in_ssd_op():
+        row.update(timed("ssd_op_tensor_cores_ms", lambda: ssd_op(x, a, B, C, Q), 20))
+    print(f"  ssd_chunk served shape: ms={row['ms']:.5f} ({served}) "
+          f"tensor_cores_ms={row['tensor_cores_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+          f"ssd_op_ms={row['ssd_op_ms']:.5f} "
+          f"ssd_op_tensor_cores_ms={row['ssd_op_tensor_cores_ms']:.5f} "
+          f"bound_ms={row['bound_ms']:.6f}", flush=True)
+    return row
+
+
+def _tensor_cores_in_ssd_op():
+    """``ssd_op`` (and so the model) with K4 forced onto the tensor cores:
+    for measurement, not for serving."""
+    import functools
+    import importlib
+
+    ops = importlib.import_module("repro_torch.kernels.ssd_chunk.ops")
+    return mock.patch.object(ops, "ssd_chunk_op",
+                             functools.partial(ops.ssd_chunk_op, which="tensor_cores"))
 
 
 def phase_kernels(dev):
@@ -524,7 +564,7 @@ def phase_transfer(dev):
 
 # ---------------------------------------------------------------------------
 def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
-           page_size=16, state_leaf=None, state_probe=None):
+           page_size=16, state_leaf=None, state_probe=None, compare=None):
     """Drive ``model`` at full width in bf16 through the main path: random
     weights from seed 0, a WeightManager sleep/wake round trip, and a
     FunctionalServer answering 4 requests of 512, 384, 512 (the repeat) and
@@ -539,10 +579,12 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
     of that state against the plain version on the same layer inputs:
     those are held to 2e-2, and the state's difference after the whole
     model and the decode reading with the state zeroed are reported.
-    Returns the launch counts of the main path and the result fields."""
+    ``compare(params, toks, plain_logits)`` returns further fields to
+    report. Returns the launch counts of the main path and the result
+    fields."""
     from repro_torch.configs import get_config
     from repro_torch.core import make_functional_engine
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
     from repro_torch.models import decode_step, init_params, param_bytes, prefill
     from repro_torch.serving import FunctionalServer, WeightManager
     from repro_torch.tree import tree_leaves, tree_map
@@ -576,7 +618,7 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
     srv.run_until_done()
     torch.cuda.synchronize()
     serve_s = time.monotonic() - t0
-    counts = launch_counts()                     # --- the main path ends here
+    counts = {**launch_counts(), **route_counts()}   # --- the main path ends here
     main_s = time.monotonic() - t_main
     peak = torch.cuda.max_memory_allocated(dev)
 
@@ -597,6 +639,7 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
     check(logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all().item(),
           "prefill logits are not finite or have the wrong shape")
     rel = max_err(logits, plain) / plain.float().abs().max().item()
+    extra = compare(params, toks, plain) if compare else {}
     check(rel <= 2e-2, f"prefill logits differ from the plain path: {rel:.3e} of max")
     check(int(torch.argmax(logits[0])) == reqs[0].generated[0],
           "the served first token is not the prefill's argmax")
@@ -647,7 +690,7 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
         ttft_ms=[r.ttft * 1e3 for r in reqs], hit_tokens=[r.hit_tokens for r in reqs],
         tokens=n_tokens, serve_s=serve_s, tokens_per_s=n_tokens / serve_s,
         main_path_s=main_s, peak_mem_GB=peak / 1e9,
-        logits_rel_err=rel, decode_logits_rel_err=dec_rel, **state,
+        logits_rel_err=rel, decode_logits_rel_err=dec_rel, **state, **extra,
         transfer_log=srv.transfer_log, launches=counts)
 
 
@@ -675,16 +718,62 @@ def phase_serve(dev):
 
 def phase_serve_ssm(dev):
     """Mamba2-370m: prefill through K4 (48 launches per request, one per
-    layer), recurrent decode, wake through K1. Each layer's final SSM
-    state from the prefill is held to the plain version's on the same
-    layer inputs (2e-2 in the Frobenius norm), which holds K4's final
-    state and not only its y; decode is compared from each path's own
-    prefill state."""
+    layer, all on K4's default route, ``ssd_chunk.route``), recurrent
+    decode, wake through K1. Each layer's final SSM state from the prefill
+    is held to the plain version's on the same layer inputs (2e-2 in the
+    Frobenius norm), which holds K4's final state and not only its y;
+    decode is compared from each path's own prefill state.
+    Also reported, not checked, the prefill logits against the plain path
+    (``logits_rel_err_*``): the plain path run again; the plain version
+    with its y_diag given relative noise of 1e-8 to 3e-6 before its bf16
+    rounding, which measures how far this random-weight model carries a
+    rounding; K4 forced onto the tensor cores, for all its outputs, for
+    y_diag alone and for the states and out_decay alone."""
+    import importlib
+
     import repro_torch.models.ssm as ssm
     from repro_torch.kernels import ssd_op_ref
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import route
+    from repro_torch.models import prefill
+
+    ops = importlib.import_module("repro_torch.kernels.ssd_chunk.ops")
 
     def plain_path():
         return mock.patch.object(ssm, "ssd_op", ssd_op_ref)
+
+    def noisy_plain(noise, ref=ops.ssd_chunk_op_ref):
+        def run(x, a, B, C, chunk):
+            y, states, decay = ref(x.float(), a, B, C, chunk)       # y_diag in fp32
+            g = torch.Generator(device=x.device).manual_seed(0)
+            y = y * (1 + noise * torch.randn(y.shape, device=x.device, generator=g))
+            return y.to(x.dtype), states, decay
+
+        ctx = contextlib.ExitStack()
+        ctx.enter_context(plain_path())
+        ctx.enter_context(mock.patch.object(ops, "ssd_chunk_op_ref", run))
+        return ctx
+
+    def tensor_cores_for(y_diag: bool, rest: bool, kernel=ops.ssd_chunk_op):
+        def run(x, a, B, C, chunk):
+            tc = kernel(x, a, B, C, chunk, which="tensor_cores")
+            ref = ops.ssd_chunk_op_ref(x, a, B, C, chunk)
+            return (tc if y_diag else ref)[0], *(tc if rest else ref)[1:]
+        return mock.patch.object(ops, "ssd_chunk_op", run)
+
+    def compare(params, toks, plain):
+        def rel(ctx):
+            with ctx:
+                logits = prefill(params, toks, ssm_cfg, max_len=1024)[0]
+            return max_err(logits, plain) / plain.float().abs().max().item()
+
+        return {
+            "logits_rel_err_plain_again": rel(plain_path()),
+            "logits_rel_err_plain_noise": {
+                f"{n:.0e}": rel(noisy_plain(n)) for n in (1e-8, 3e-8, 1e-7, 3e-7, 1e-6, 3e-6)},
+            "logits_rel_err_tensor_cores": rel(_tensor_cores_in_ssd_op()),
+            "logits_rel_err_tensor_cores_y_diag_only": rel(tensor_cores_for(True, False)),
+            "logits_rel_err_tensor_cores_states_only": rel(tensor_cores_for(False, True)),
+        }
 
     @contextlib.contextmanager
     def state_probe():
@@ -706,12 +795,19 @@ def phase_serve_ssm(dev):
     # leaves 543 tokens; at 32-token pages its last whole page ends at 512,
     # where the repeat's prompt ends (at 16-token pages it would end at
     # 528, past the prompt, and the repeat would miss).
+    from repro_torch.configs import get_config
+
+    ssm_cfg = get_config("mamba2-370m")
     cfg, reqs, counts, fields = _serve(
         dev, "mamba2-370m", plain_path, ("relay_assemble", "ssd_chunk"),
         decode_from_plain_prefill=True, page_size=32, state_leaf="ssm",
-        state_probe=state_probe)
+        state_probe=state_probe, compare=compare)
     check(counts["ssd_chunk"] == cfg.n_layers * len(reqs),
           f"K4 launched {counts['ssd_chunk']} times, not {cfg.n_layers} per request")
+    served = route(ssm_cfg.dtype, ssm_cfg.ssm_chunk, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state)
+    check(counts[f"ssd_chunk:{served}"] == counts["ssd_chunk"],
+          f"K4 took another route than its default, {served}, on the served path: "
+          f"{ {k: v for k, v in counts.items() if k.startswith('ssd_chunk:')} }")
     check(counts["flash_attention"] == counts["decode_attention"] == 0,
           "an attention kernel ran on the attention-free model")
     report("serve-ssm", **fields)

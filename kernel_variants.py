@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time edited variants of the port's attention kernels on one NVIDIA card.
+"""Time edited variants of the port's hand-written kernels on one NVIDIA card.
 
-    python3 kernel_variants.py {k3,k2} [--out DIR]
+    python3 kernel_variants.py {k2,k3,k4} [--out DIR]
 
 Each variant is the kernel's CUDA source (``src/repro_torch/csrc``) with
 a few text edits applied, built with nvcc into a library of its own (one
@@ -10,9 +10,11 @@ version and timed as ``chip_smoke.py`` times the kernels: device ms from a
 CUDA-graph replay of 20 calls, eager ms from the same calls issued back to
 back. An edit whose text is not in the source fails the run, so a variant
 cannot silently time the unedited kernel. The PyTorch library call for the
-same function (SDPA) is timed beside each case. The sets below hold the
-design choices behind the present K3 and K2: each variant undoes or
-changes one of them. Each variant's edited source and nvcc log stay under
+same function (SDPA, for K3 and K2; K4 has none) is timed beside each
+case. The sets below hold the design choices behind the present K3, K2 and
+K4's tensor-core route: each variant undoes or changes one of them. A
+variant listed as report-only prints its errors without failing the run:
+those are the ones whose point is the error they cause. Each variant's edited source and nvcc log stay under
 ``--out`` (default ``build/kernel_variants``, git-ignored).
 
 Needs a CUDA card, nvcc (PATH or /usr/local/cuda/bin) and the repository's
@@ -39,8 +41,11 @@ from chip_smoke import time_ms  # noqa: E402
 
 _K3_W2 = "launch_bf16<64, 2>("
 _K2_KG = "  int KG = kWarps / wpg < kMaxKeyGroups ? kWarps / wpg : kMaxKeyGroups;"
+_K4_SLICE = "constexpr int kSlice = 2;"
+_K4_SL = "constexpr int kPartsSL = 3;"
+_K4_XW = "constexpr int kPartsXW = 2;"
 
-# name -> (source file, {variant: [(old, new), ...]}, cases, timing-only variants)
+# name -> (source file, {variant: [(old, new), ...]}, cases, report-only variants)
 SETS = {
     "k3": ("flash_attention.cu", {
         "as built": [],
@@ -56,6 +61,20 @@ SETS = {
         "no keys (fixed costs)": [("  const int s_end = min(s_begin + split, len);",
                                    "  const int s_end = s_begin;")],
     }, [64, 300, 1024], {"no keys (fixed costs)"}),
+    "k4": ("ssd_chunk.cu", {
+        "as built": [],
+        "S o L in two bf16 parts": [(_K4_SL, "constexpr int kPartsSL = 2;")],
+        "S o L as bf16 alone": [(_K4_SL, "constexpr int kPartsSL = 1;")],
+        "x o w in three bf16 parts": [(_K4_XW, "constexpr int kPartsXW = 3;")],
+        "x o w as bf16 alone": [(_K4_XW, "constexpr int kPartsXW = 1;")],
+        "C B^T per head": [(_K4_SLICE, "constexpr int kSlice = 1;")],
+        "four heads per C B^T": [(_K4_SLICE, "constexpr int kSlice = 4;")],
+        "cp.async instead of TMA": [("  A.tma = A.vec && P % 64 == 0 && N % 64 == 0;",
+                                     "  A.tma = 0;")],
+        "no load balancing": [("  std::stable_sort(A.order, A.order + A.n_it + 1,",
+                               "  if (0) std::stable_sort(A.order, A.order + A.n_it + 1,")],
+    }, [(512, 1, "fast"), (512, 1, "slow"), (384, 2, "slow")],
+        {"S o L in two bf16 parts", "S o L as bf16 alone", "x o w as bf16 alone"}),
 }
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -116,7 +135,7 @@ def k3_cases(lib, cases, dev, gen):
                     if Sq == T else None)
 
         run()
-        return (f"Sq={Sq} T={T} q_offset={off}", o, flash_attention_ref(q, k, v, q_offset=off),
+        return (f"Sq={Sq} T={T} q_offset={off}", (o,), (flash_attention_ref(q, k, v, q_offset=off),),
                 run, library)
 
     return [case(*c) for c in cases]
@@ -147,9 +166,41 @@ def k2_cases(lib, cases, dev, gen):
                 raise RuntimeError(f"launch failed: CUDA error {rc}")
 
         run()
-        rows.append((f"kv_len={L} cluster={cluster}", o, decode_attention_ref(q, k, v, L),
+        rows.append((f"kv_len={L} cluster={cluster}", (o,), (decode_attention_ref(q, k, v, L),),
                      run, lambda L=L: F.scaled_dot_product_attention(
                          q[:, :, None], k[:, :, :L], v[:, :, :L], enable_gqa=True)))
+    return rows
+
+
+def k4_cases(lib, cases, dev, gen):
+    """Mamba2-370m's prefill shape (32 heads of 64, N = 128, chunk 256) on
+    the tensor-core route, at fast and slow decays: y_diag against 2e-2,
+    the states and out_decay against 1e-4, all against the plain version."""
+    from chip_smoke import _ssd_inputs
+    from repro_torch.kernels import ssd_chunk_op_ref
+
+    fn = lib.ssd_chunk_launch
+    fn.argtypes = [_P] * 7 + [_I] * 9 + [_L] * 15 + [_P]
+    fn.restype = _I
+    rows = []
+    for l, g, decay in cases:
+        x, a, B, C = _ssd_inputs(dev, gen, torch.bfloat16, l, 32, g, decay)
+        nc = -(-l // 256)
+        y = torch.empty_like(x)
+        states = torch.empty(1, 32, nc, 64, 128, device=dev)
+        decays = torch.empty(1, 32, nc, 256, device=dev)
+
+        def run(x=x, a=a, B=B, C=C, y=y, states=states, decays=decays, l=l, g=g):
+            rc = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
+                    states.data_ptr(), decays.data_ptr(), 1, 1, 1, 32, g, l, 256, 64, 128,
+                    *x.stride()[:3], *a.stride(), *B.stride()[:3], *C.stride()[:3],
+                    *y.stride()[:3], torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+        run()
+        rows.append((f"l={l} groups={g} decay={decay}", (y, states, decays),
+                     ssd_chunk_op_ref(x, a, B, C, 256), run, lambda: None))
     return rows
 
 
@@ -173,21 +224,26 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60)
     print(f"{torch.cuda.get_device_name(0)} | {smi.stdout.strip()} | set {args.set}",
           flush=True)
-    make = k3_cases if args.set == "k3" else k2_cases
+    make = {"k3": k3_cases, "k2": k2_cases, "k4": k4_cases}[args.set]
     library_done = set()
     failed = False
     for name, lib in libs.items():
         gen = torch.Generator(device=dev).manual_seed(0)
-        for case, out_t, ref, run, library in make(lib, cases, dev, gen):
+        for case, outs, refs, run, library in make(lib, cases, dev, gen):
             torch.cuda.synchronize()
-            err = (out_t.float() - ref.float()).abs().max().item()
-            if name not in timing_only and not err <= 2e-2:
-                print(f"FAIL {name} {case}: max_abs_err {err:.3e} > 2e-2", flush=True)
+            # each output against its own dtype's tolerance (bf16 2e-2, fp32 1e-4)
+            errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs)]
+            tols = [2e-2 if o.dtype == torch.bfloat16 else 1e-4 for o in outs]
+            if name not in timing_only and not all(e <= t for e, t in zip(errs, tols)):
+                print(f"FAIL {name} {case}: max_abs_err {errs} > {tols}", flush=True)
                 failed = True
+            # the share of the first output's entries that round to another
+            # value than the plain version's
+            differ = (outs[0] != refs[0].to(outs[0].dtype)).float().mean().item()
             device, eager = time_ms(run, 20)
             print(f"{name:28s} {case:28s} ms={device:.5f} eager_ms={eager:.5f} "
-                  f"max_abs_err={err:.3e}" + (" (timing only)" if name in timing_only
-                                              else ""), flush=True)
+                  f"max_abs_err={' '.join(f'{e:.3e}' for e in errs)} differ={differ:.3e}"
+                  + (" (report only)" if name in timing_only else ""), flush=True)
             if case not in library_done and library() is not None:
                 library_done.add(case)
                 device, eager = time_ms(library, 20)

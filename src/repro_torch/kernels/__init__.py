@@ -3,7 +3,8 @@ its plain PyTorch version (``ref.py``) beside the wrapper that launches it.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 for a CPU tensor. Each keeps a plain integer ``launches`` count, raised by
-one where the kernel is launched and nowhere else.
+one where the kernel is launched and nowhere else; K4 also counts its
+launches by route (``ssd_chunk.route_launches``).
 
   K1 ``relay_assemble``   <- repro/kernels/relay_copy/relay_copy.py
   K2 ``decode_attention`` <- repro/kernels/decode_attention/decode_attention.py
@@ -46,6 +47,13 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def route_counts() -> Dict[str, int]:
+    """K4's launches by route, as ``ssd_chunk:<route>``."""
+    return {f"ssd_chunk:{r}": n for r, n in ssd_chunk.route_launches.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    for r in ssd_chunk.route_launches:
+        ssd_chunk.route_launches[r] = 0

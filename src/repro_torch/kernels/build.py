@@ -47,7 +47,7 @@ _SIGNATURES = {
     "decode_attention_launch": (
         [_P] * 4 + [_I, _P] + [_I] * 6 + [_L] * 10 + [_I, _F, _P]
     ),
-    "ssd_chunk_launch": [_P] * 7 + [_I] * 8 + [_L] * 15 + [_P],
+    "ssd_chunk_launch": [_P] * 7 + [_I] * 9 + [_L] * 15 + [_P],
 }
 
 
@@ -145,3 +145,30 @@ def stream_handle(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sass_counts(kernel: str, opcodes) -> Optional[Dict[str, Dict[str, int]]]:
+    """{function: {opcode: count}} over the built library's kernels whose
+    name contains ``kernel``, from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(build())], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode:
+        raise RuntimeError(f"cuobjdump failed: {out.stderr[-500:]}")
+    counts: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            fn = name if kernel in name else None
+            if fn:
+                counts[fn] = dict.fromkeys(opcodes, 0)
+        elif fn:
+            ins = line.split("*/", 1)[-1].strip().split(" ", 1)[0]
+            op = ins.split(".", 1)[0]
+            if op in counts[fn]:
+                counts[fn][op] += 1
+    return counts

@@ -36,10 +36,14 @@ def ssd_chunk_op(
     B: torch.Tensor,       # (b, l, g, n)
     C: torch.Tensor,       # (b, l, g, n)
     chunk: int,
+    *,
+    which: Optional[str] = None,
 ):
     """K4 over chunks of ``chunk`` positions. Returns (y_diag (b,l,h,p) in
     xbar's dtype, states (b,h,nc,p,n) fp32, out_decay (b,h,nc,chunk) fp32),
-    nc = ceil(l / chunk); a ragged last chunk is zero-padded."""
+    nc = ceil(l / chunk); a ragged last chunk is zero-padded. ``which``
+    names a route (``ssd_chunk.route``'s default otherwise); the CPU runs
+    the plain version whatever it says."""
     _check(xbar, a, B, C, chunk)
     if xbar.device.type == "cpu":
         return ssd_chunk_op_ref(xbar, a, B, C, chunk)
@@ -55,7 +59,7 @@ def ssd_chunk_op(
             a.stride(0), a.stride(1), a.stride(2),
             B.stride(0), B.stride(1), B.stride(2),
             C.stride(0), C.stride(1), C.stride(2),
-            y.stride(0), y.stride(1), y.stride(2)))
+            y.stride(0), y.stride(1), y.stride(2)), which)
     return y, states, decay
 
 

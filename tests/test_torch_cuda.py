@@ -19,6 +19,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import get_config
 from repro_torch.core import MMAConfig, make_functional_engine, \
     multipath_device_get, multipath_device_put
+from repro_torch.kernels import build
+from repro_torch.kernels.ssd_chunk.ssd_chunk import route, tensor_cores_take
 from repro_torch.kernels import (
     decode_attention,
     decode_attention_op,
@@ -146,38 +148,94 @@ def _ssd_inputs(dev, dtype, b, l, h, p, n, groups, decay="fast"):
     return x.to(dtype), a, B, C
 
 
-def _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, decay):
-    """K4 against its plain version; y_diag at x's dtype's tolerance, the
-    states and out_decay (fp32 on both sides) at fp32's."""
+def _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, decay, which=None):
+    """K4 on route ``which`` (the default route when None) against its
+    plain version; y_diag at x's dtype's tolerance, the states and out_decay
+    (fp32 on both sides) at fp32's. The route counter must move for the
+    route asked for; a tensor-core route for a shape the tensor cores do not
+    take must raise before anything is launched."""
     x, a, B, C = _ssd_inputs(dev, dtype, 2, l, h, p, n, groups, decay)
-    before = ssd_chunk.launches
-    got = ssd_chunk_op(x, a, B, C, chunk)
+    before, by_route = ssd_chunk.launches, dict(ssd_chunk.route_launches)
+    if which == "tensor_cores" and not tensor_cores_take(dtype, chunk, p, n):
+        with pytest.raises(ValueError):
+            ssd_chunk_op(x, a, B, C, chunk, which=which)
+        assert ssd_chunk.launches == before
+        return
+    got = ssd_chunk_op(x, a, B, C, chunk, which=which)
     assert ssd_chunk.launches == before + 1
+    took = route(dtype, chunk, p, n, which)
+    assert ssd_chunk.route_launches[took] == by_route[took] + 1
     want = ssd_chunk_op_ref(x, a, B, C, chunk)
     for out, ref, want_dtype in zip(got, want, (dtype, torch.float32, torch.float32)):
         assert out.dtype == want_dtype and out.shape == ref.shape
         _close(out, ref, want_dtype)
 
 
+@pytest.mark.parametrize("which", [None, "tensor_cores"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l,h,p,n,groups,chunk", [
     (512, 32, 64, 128, 1, 256),    # Mamba2-370m's prefill of 512 tokens
     (200, 8, 64, 128, 2, 256),     # ragged single chunk, two groups
     (100, 4, 32, 16, 2, 32),       # ragged last chunk, reduced widths
 ])
-def test_ssd_chunk_matches_plain(dev, dtype, l, h, p, n, groups, chunk):
-    _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, "fast")
+def test_ssd_chunk_matches_plain(dev, dtype, l, h, p, n, groups, chunk, which):
+    _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, "fast", which)
 
 
+@pytest.mark.parametrize("which", [None, "tensor_cores"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l,h,p,n,groups,chunk", [
     (512, 32, 64, 128, 1, 256),    # Mamba2-370m's prefill of 512 tokens
     (384, 32, 64, 128, 2, 256),    # ragged last chunk, two groups
 ])
-def test_ssd_chunk_slow_decays_match_plain(dev, dtype, l, h, p, n, groups, chunk):
+def test_ssd_chunk_slow_decays_match_plain(dev, dtype, l, h, p, n, groups, chunk, which):
     """Decays slow enough that a kernel which dropped key tiles far below
     the diagonal, or early positions of the state, would fail."""
-    _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, "slow")
+    _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, "slow", which)
+
+
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+@pytest.mark.parametrize("l,h,p,n,groups,chunk", [
+    (512, 32, 64, 128, 1, 256),    # Mamba2-370m's prefill of 512 tokens
+    (300, 32, 64, 128, 1, 256),    # ragged length
+    (200, 32, 64, 128, 1, 256),    # one ragged chunk
+    (384, 32, 64, 128, 2, 256),    # two groups, ragged last chunk
+    (512, 32, 64, 16, 1, 256),     # jamba's N = 16: cp.async, zero-padded columns
+    (512, 32, 64, 128, 1, 64),     # chunks of one row tile
+    (512, 32, 64, 128, 1, 128),    # chunks of two row tiles
+    (320, 8, 128, 256, 2, 128),    # P = 128, N = 256: the widest tiles
+    (200, 6, 32, 64, 2, 64),       # P = 32; three heads per group, a slice of one
+    (1100, 4, 64, 64, 2, 1024),    # the longest chunk it takes (16 row tiles), ragged
+])
+def test_ssd_chunk_tensor_cores_match_plain(dev, l, h, p, n, groups, chunk, decay):
+    """K4's tensor-core route in bf16 against the plain version, with the
+    random model's fast decays and Mamba2's slow ones."""
+    assert tensor_cores_take(torch.bfloat16, chunk, p, n)
+    _ssd_matches_plain(dev, torch.bfloat16, l, h, p, n, groups, chunk, decay, "tensor_cores")
+
+
+def test_ssd_chunk_cuda_cores_forced_at_the_served_shape(dev):
+    """The served bf16 shape takes the CUDA-core kernel by default and when
+    named, and the tensor-core kernel only when named; each agrees with the
+    plain version."""
+    x, a, B, C = _ssd_inputs(dev, torch.bfloat16, 1, 512, 32, 64, 128, 1, "slow")
+    want = ssd_chunk_op_ref(x, a, B, C, 256)
+    for which, took in ((None, "cuda_cores"), ("cuda_cores", "cuda_cores"),
+                        ("tensor_cores", "tensor_cores")):
+        before = dict(ssd_chunk.route_launches)
+        got = ssd_chunk_op(x, a, B, C, 256, which=which)
+        assert {r: n - before[r] for r, n in ssd_chunk.route_launches.items()} == {
+            r: int(r == took) for r in before}
+        for out, ref, dtype in zip(got, want, (torch.bfloat16, torch.float32, torch.float32)):
+            _close(out, ref, dtype)
+
+
+def test_ssd_chunk_tensor_core_kernel_has_hgmma(dev):
+    """The bf16 K4 functions' SASS carries wgmma (HGMMA) instructions."""
+    counts = build.sass_counts("ssd_chunk_tc", ("HGMMA", "HMMA"))
+    if counts is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    assert counts and all(c["HGMMA"] > 0 for c in counts.values()), counts
 
 
 def test_ssd_chunk_fused_layout_matches_plain(dev):
@@ -188,6 +246,22 @@ def test_ssd_chunk_fused_layout_matches_plain(dev):
     C = torch.randn(6, 2, 64, 32, device=dev, generator=g) * 0.3
     for out, ref in zip(ssd_chunk(x, a, B, C), ssd_chunk_ref(x, a, B, C)):
         _close(out, ref, torch.float32)
+
+
+def test_ssd_chunk_fused_layout_on_the_tensor_cores(dev):
+    """The (BH, nc, Q, .) wrapper in bf16 launches the tensor-core kernel
+    with one head and one group per fused row (head strides of 0)."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = (torch.randn(6, 2, 64, 64, device=dev, generator=g) * 0.3).bfloat16()
+    a = -torch.rand(6, 2, 64, device=dev, generator=g)
+    B = (torch.randn(6, 2, 64, 64, device=dev, generator=g) * 0.3).bfloat16()
+    C = (torch.randn(6, 2, 64, 64, device=dev, generator=g) * 0.3).bfloat16()
+    before = ssd_chunk.route_launches["tensor_cores"]
+    got = ssd_chunk(x, a, B, C, which="tensor_cores")
+    assert ssd_chunk.route_launches["tensor_cores"] == before + 1
+    for out, ref, dtype in zip(got, ssd_chunk_ref(x, a, B, C),
+                               (torch.bfloat16, torch.float32, torch.float32)):
+        _close(out, ref, dtype)
 
 
 @pytest.mark.parametrize("width", [1, 7, 4096])

@@ -27,6 +27,11 @@ from repro_torch.kernels.decode_attention.decode_attention import (
     split_range,
 )
 from repro_torch.kernels.flash_attention.flash_attention import block_order
+from repro_torch.kernels.ssd_chunk.ssd_chunk import (
+    launch as ssd_launch,
+    route as ssd_route,
+    tensor_cores_take as ssd_tensor_cores_take,
+)
 from repro_torch.kernels import (
     decode_attention,
     decode_attention_op,
@@ -328,3 +333,85 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
                          torch.zeros(1, 8, 3, 4), torch.zeros(1, 8, 3, 4), 8)
         else:
             relay_assemble(torch.zeros(3, 4), torch.tensor([0, 1, 2]))
+
+
+@pytest.mark.parametrize("dtype,Q,P,N,expected", [
+    (torch.bfloat16, 256, 64, 128, "tensor_cores"),   # Mamba2-370m
+    (torch.bfloat16, 256, 64, 16, "tensor_cores"),    # jamba-1.5's SSM widths
+    (torch.bfloat16, 64, 64, 128, "tensor_cores"),
+    (torch.bfloat16, 1024, 128, 256, "tensor_cores"),  # the widest it takes
+    (torch.float32, 256, 64, 128, "cuda_cores"),      # fp32 keeps 1e-4 on CUDA cores
+    (torch.bfloat16, 32, 32, 16, "cuda_cores"),       # chunk 32 (reduced configs)
+    (torch.bfloat16, 256, 64, 8, "cuda_cores"),       # N = 8
+    (torch.bfloat16, 96, 64, 128, "cuda_cores"),      # Q not a multiple of 64
+    (torch.bfloat16, 2048, 64, 128, "cuda_cores"),    # more than 16 row tiles
+    (torch.bfloat16, 256, 40, 128, "cuda_cores"),     # P not a multiple of 16
+    (torch.bfloat16, 256, 64, 272, "cuda_cores"),     # N past 256
+])
+def test_ssd_route_is_a_function_of_dtype_and_shape(dtype, Q, P, N, expected):
+    """Every shape takes the CUDA cores unless the call names a route; the
+    tensor cores take the bf16 shapes ``tensor_cores_take`` accepts and
+    refuse the rest."""
+    assert ssd_tensor_cores_take(dtype, Q, P, N) == (expected == "tensor_cores")
+    assert ssd_route(dtype, Q, P, N) == ssd_route(dtype, Q, P, N, "cuda_cores") == "cuda_cores"
+    if expected == "tensor_cores":
+        assert ssd_route(dtype, Q, P, N, "tensor_cores") == "tensor_cores"
+    else:
+        with pytest.raises(ValueError):
+            ssd_route(dtype, Q, P, N, "tensor_cores")
+
+
+@pytest.mark.parametrize("model,reduced,expected", [
+    ("mamba2-370m", False, "tensor_cores"),
+    ("jamba-1.5-large-398b", False, "tensor_cores"),
+    ("mamba2-370m", True, "cuda_cores"),      # fp32, chunk 32
+])
+def test_ssd_route_of_the_configured_models(model, reduced, expected):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(model)
+    cfg = cfg.reduced() if reduced else cfg
+    shape = (cfg.dtype, cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state)
+    assert ssd_tensor_cores_take(*shape) == (expected == "tensor_cores")
+    assert ssd_route(*shape) == "cuda_cores"      # what the model's ssd_op launches
+
+
+@pytest.mark.parametrize("dtype,which", [(torch.float32, "tensor_cores"),
+                                         (torch.bfloat16, "gpu")])
+def test_ssd_launch_rejects_a_route_that_cannot_take_the_call(dtype, which):
+    """A named route that does not take the dtype, or no route at all,
+    raises before anything is launched."""
+    x = torch.zeros(1, 256, 2, 64, dtype=dtype)
+    B = torch.zeros(1, 256, 1, 128, dtype=dtype)
+    a = torch.zeros(1, 256, 2)
+    with pytest.raises(ValueError):
+        ssd_launch(x, a, B, B, x, torch.zeros(1, 2, 1, 64, 128), torch.zeros(1, 2, 1, 256),
+                   (1, 2, 1, 256, 256, 64, 128), (0,) * 15, which)
+
+
+def test_ssd_route_counts_reset_with_the_launch_counts():
+    from repro_torch.kernels import reset_launch_counts, route_counts
+
+    ssd_chunk.route_launches["tensor_cores"] += 3
+    reset_launch_counts()
+    assert route_counts() == {"ssd_chunk:cuda_cores": 0, "ssd_chunk:tensor_cores": 0}
+
+
+@pytest.mark.parametrize("which", [None, "cuda_cores", "tensor_cores"])
+def test_ssd_op_runs_the_plain_version_on_the_cpu_whatever_the_route(which):
+    """On CPU tensors K4 computes the plain version for any route, and so
+    does ssd_op, which takes the default route."""
+    from repro_torch.kernels import ssd_chunk_op, ssd_chunk_op_ref, ssd_op, ssd_op_ref
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((1, 40, 4, 8), dtype=np.float32))
+    a = -torch.from_numpy(rng.random((1, 40, 4), dtype=np.float32))
+    B = torch.from_numpy(rng.standard_normal((1, 40, 2, 16), dtype=np.float32))
+    before = launch_counts()
+    pairs = [(ssd_chunk_op(x, a, B, B, 16, which=which), ssd_chunk_op_ref(x, a, B, B, 16))]
+    if which is None:
+        pairs.append((ssd_op(x, a, B, B, 16), ssd_op_ref(x, a, B, B, 16)))
+    assert launch_counts() == before
+    for got, want in pairs:
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)

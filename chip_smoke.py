@@ -11,6 +11,9 @@ Phases, one result line each:
              card at the main path's shapes (and at rows that see no key, a
              ragged chunk, two B/C groups), and timed beside its bound, the
              plain version and one PyTorch library call where there is one;
+             K1, K2 and K3 at TinyLlama's shapes and at OLMoE's (a 4 GiB
+             expert leaf; 16 heads of 128 on 16 KV heads), the second set
+             under "olmoe" in their rows;
              K3 also through the model-layout wrapper and at a 2048-token
              prompt (its share of the operations bound); K3 and K4 with the
              HGMMA count `cuobjdump -sass` finds in their bf16 kernels; K4 on
@@ -26,6 +29,16 @@ Phases, one result line each:
   serve-ssm  the SSM path: Mamba2-370m at full width in bf16, the same round
              trip and requests, prefill through K4 (every launch on its
              default route) and recurrent decode
+  serve-moe  the MoE path: OLMoE-1B-7B at full width and depth in bf16 (13.84
+             GB), the same round trip and requests, prefill through K3 and
+             decode through K2 (16 launches each per prefill and per decode
+             step), the 64-expert top-8 channel in every layer. The plain
+             path replays the kernel path's recorded routes; every K3 and K2
+             call of the comparison is held to its plain version on the same
+             inputs, and the end-to-end logits errors (which this model's
+             own sensitivity puts past 2e-2 even on the same routes), the
+             free-running gap, the routes that differ and the assignments
+             dropped over capacity are reported
 
 Launch counts are zeroed just before each serve phase and read just after it.
 The script ends with the kernels JSON line (launches summed over the serve
@@ -138,11 +151,12 @@ def phase_build(out_dir):
            spill_lines=spills[:8])
 
 
-def _relay_case(dev, gen):
+def _relay_leaf(dev, gen, elems, reps):
+    """K1 on one wake leaf of ``elems`` bf16 elements at 1 MiB chunks:
+    bit-exact for the identity and a random landing order, then timed on
+    the identity (the order chunks land in on one card)."""
     from repro_torch.kernels import relay_assemble, relay_assemble_ref
 
-    # The largest wake leaf: w_gate (22, 2048, 5632) bf16 at 1 MiB chunks.
-    elems = 22 * 2048 * 5632
     chunk = (1 << 20) // 2
     n = -(-elems // chunk)
     staged = torch.randint(-2 ** 15, 2 ** 15, (n, chunk), dtype=torch.int16,
@@ -154,87 +168,122 @@ def _relay_case(dev, gen):
         ref = relay_assemble_ref(staged, perm)
         torch.cuda.synchronize()
         check(torch.equal(out.view(torch.int16), ref.view(torch.int16)),
-              f"relay_assemble {name} perm is not bit-exact")
-    # odd row width and 1-byte dtype: the scalar tail
-    small = torch.randint(0, 255, (5, 1001), dtype=torch.uint8, device=dev, generator=gen)
-    p5 = torch.randperm(5, device=dev, generator=gen).to(torch.int32)
-    check(torch.equal(relay_assemble(small, p5), relay_assemble_ref(small, p5)),
-          "relay_assemble uint8 odd width is not bit-exact")
+              f"relay_assemble ({n}, {chunk}) {name} perm is not bit-exact")
+        del out, ref
     perm = torch.arange(n, device=dev, dtype=torch.int32)   # the main path's
     return {
-        "name": "relay_assemble", "route": "cuda",
-        "source": "src/repro_torch/csrc/relay_copy.cu",
-        "replaces": "src/repro/kernels/relay_copy/relay_copy.py:27",
         "shape": f"staged ({n}, {chunk}) bf16, identity perm",
-        "max_abs_err": 0.0,
-        **timed("ms", lambda: relay_assemble(staged, perm), 20),
-        **timed("plain_ms", lambda: relay_assemble_ref(staged, perm), 20),
-        **timed("library_ms", lambda: staged.index_select(0, perm), 20),
+        **timed("ms", lambda: relay_assemble(staged, perm), reps),
+        **timed("plain_ms", lambda: relay_assemble_ref(staged, perm), reps),
+        **timed("library_ms", lambda: staged.index_select(0, perm), reps),
         "bound_ms": 2 * nbytes(staged) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
 
 
-def _flash_case(dev, gen):
-    import torch.nn.functional as F
-    from repro_torch.kernels import build, flash_attention, flash_attention_op, \
-        flash_attention_ref
+def _relay_case(dev, gen):
+    from repro_torch.kernels import relay_assemble, relay_assemble_ref
 
-    B, H, G, D = 1, 32, 4, 64
-    worst = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        for S, window in ((200, 0), (512, 0), (512, 48)):
-            q = torch.randn(B, H, S, D, device=dev, generator=gen).to(dtype)
-            k = torch.randn(B, G, S, D, device=dev, generator=gen).to(dtype)
-            v = torch.randn(B, G, S, D, device=dev, generator=gen).to(dtype)
-            out = flash_attention(q, k, v, causal=True, window=window)
-            ref = flash_attention_ref(q, k, v, causal=True, window=window)
-            err = max_err(out, ref)
-            print(f"  flash_attention {str(dtype)[6:]} S={S} window={window} "
-                  f"max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
-            check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
-                  f"flash_attention {dtype} S={S} window={window}: err {err}")
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
-        # queries past T with a window: the last rows see no key
-        q = torch.randn(B, H, 64, D, device=dev, generator=gen).to(dtype)
-        out = flash_attention(q, k, v, window=48, q_offset=S - 8)
-        ref = flash_attention_ref(q, k, v, window=48, q_offset=S - 8)
-        err = max_err(out, ref)
-        print(f"  flash_attention {str(dtype)[6:]} rows with no key (q_offset={S - 8}) "
-              f"max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
-        check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
-              f"flash_attention {dtype} rows with no key: err {err}")
-        worst[dtype] = max(worst[dtype], err)
-    # The served shape, in the kernel's layout and in the model's (the
-    # wrapper the model calls, with its own strides), and SDPA beside them.
-    S = 512
+    # odd row width and 1-byte dtype: the scalar tail
+    small = torch.randint(0, 255, (5, 1001), dtype=torch.uint8, device=dev, generator=gen)
+    p5 = torch.randperm(5, device=dev, generator=gen).to(torch.int32)
+    check(torch.equal(relay_assemble(small, p5), relay_assemble_ref(small, p5)),
+          "relay_assemble uint8 odd width is not bit-exact")
+    row = {
+        "name": "relay_assemble", "route": "cuda",
+        "source": "src/repro_torch/csrc/relay_copy.cu",
+        "replaces": "src/repro/kernels/relay_copy/relay_copy.py:27",
+        "max_abs_err": 0.0,
+        # TinyLlama's largest wake leaf: w_gate (22, 2048, 5632)
+        **_relay_leaf(dev, gen, 22 * 2048 * 5632, 20),
+        # OLMoE's: each expert leaf (16, 64, 2048, 1024), 2^31 elements, 4 GiB
+        "olmoe": _relay_leaf(dev, gen, 16 * 64 * 2048 * 1024, 4),
+    }
+    o = row["olmoe"]
+    print(f"  relay_assemble olmoe {o['shape']}: bit-exact, ms={o['ms']:.4f} "
+          f"index_select_ms={o['library_ms']:.4f} bound_ms={o['bound_ms']:.4f}", flush=True)
+    return row
+
+
+def _flash_served(dev, gen, B, H, G, D, S):
+    """K3 at a served prefill shape in bf16: device and eager ms, through
+    the model-layout wrapper too (its own strides; held bit-equal to the
+    kernel's layout), the plain version's and SDPA's, and the bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, flash_attention_op, flash_attention_ref
+
     q = torch.randn(B, H, S, D, device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
     v = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
     qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    shape = f"q ({B}, {H}, {S}, {D}) k,v ({B}, {G}, {S}, {D}) bf16 causal"
     check(torch.equal(flash_attention_op(qm, km, vm), flash_attention(q, k, v).transpose(1, 2)),
-          "flash_attention_op differs from flash_attention on the same inputs")
-    library = timed("library_ms", lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20)
+          f"flash_attention_op differs from flash_attention at {shape}")
     flops = 2 * B * H * S * S * D    # causal: half of 4 * B * H * S^2 * D
     moved = nbytes(q, k, v, q)
-    row = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:66",
-        "shape": f"q ({B}, {H}, {S}, {D}) k,v ({B}, {G}, {S}, {D}) bf16 causal",
-        "max_abs_err": worst[torch.bfloat16],
-        "max_abs_err_f32": worst[torch.float32],
+    return {
+        "shape": shape,
         **timed("ms", lambda: flash_attention(q, k, v), 20),
         **timed("op_ms", lambda: flash_attention_op(qm, km, vm), 20),
         **timed("plain_ms", lambda: flash_attention_ref(q, k, v), 20),
-        **library,
+        **timed("library_ms", lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20),
         "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
         else "bytes",
     }
+
+
+def _flash_case(dev, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels import build, flash_attention, flash_attention_ref
+
+    B = 1
+    worst = {}
+    # TinyLlama's prefill (32 query heads on 4 KV heads of 64), with a
+    # window and rows that see no key; OLMoE's (16 on 16 KV heads of 128)
+    for H, G, D, cases in ((32, 4, 64, ((200, 0), (512, 0), (512, 48))),
+                           (16, 16, 128, ((200, 0), (512, 0)))):
+        for dtype in (torch.bfloat16, torch.float32):
+            for S, window in cases:
+                q = torch.randn(B, H, S, D, device=dev, generator=gen).to(dtype)
+                k = torch.randn(B, G, S, D, device=dev, generator=gen).to(dtype)
+                v = torch.randn(B, G, S, D, device=dev, generator=gen).to(dtype)
+                out = flash_attention(q, k, v, causal=True, window=window)
+                ref = flash_attention_ref(q, k, v, causal=True, window=window)
+                err = max_err(out, ref)
+                print(f"  flash_attention {str(dtype)[6:]} H={H} G={G} D={D} S={S} "
+                      f"window={window} max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
+                check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
+                      f"flash_attention {dtype} H={H} G={G} D={D} S={S} window={window}: "
+                      f"err {err}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+            # queries past T with a window: the last rows see no key
+            q = torch.randn(B, H, 64, D, device=dev, generator=gen).to(dtype)
+            out = flash_attention(q, k, v, window=48, q_offset=S - 8)
+            ref = flash_attention_ref(q, k, v, window=48, q_offset=S - 8)
+            err = max_err(out, ref)
+            print(f"  flash_attention {str(dtype)[6:]} H={H} G={G} D={D} rows with no key "
+                  f"(q_offset={S - 8}) max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
+            check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
+                  f"flash_attention {dtype} H={H} G={G} D={D} rows with no key: err {err}")
+            worst[dtype] = max(worst[dtype], err)
+    # The served shapes, TinyLlama's in the row and OLMoE's beside it
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:66",
+        "max_abs_err": worst[torch.bfloat16],
+        "max_abs_err_f32": worst[torch.float32],
+        **_flash_served(dev, gen, B, 32, 4, 64, 512),
+        "olmoe": _flash_served(dev, gen, B, 16, 16, 128, 512),
+    }
+    o = row["olmoe"]
+    print(f"  flash_attention olmoe {o['shape']}: ms={o['ms']:.5f} op_ms={o['op_ms']:.5f} "
+          f"sdpa_ms={o['library_ms']:.5f} bound_ms={o['bound_ms']:.5f} ({o['bound_by']})",
+          flush=True)
     # A long prompt, where the products and not the bytes bound the call.
-    S = 2048
+    H, G, D, S = 32, 4, 64, 2048
     q = torch.randn(B, H, S, D, device=dev, generator=gen).to(torch.bfloat16)
     k = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
     v = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
@@ -258,8 +307,34 @@ def _flash_case(dev, gen):
     return row
 
 
-def _decode_case(dev, gen):
+def _decode_served(dev, gen, B, H, G, D, T, L):
+    """K2 at a served decode shape in bf16, kv_len ``L`` passed as the
+    model passes it (one int for the batch) and as a device array (the
+    other form the wrapper takes): device and eager ms, the plain
+    version's and SDPA's on the valid prefix, and the byte bound (query and
+    valid cache read once, output written once)."""
     import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention, decode_attention_ref
+
+    q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, G, T, D, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, G, T, D, device=dev, generator=gen).to(torch.bfloat16)
+    lens = torch.full((B,), L, dtype=torch.int32, device=dev)
+    kp, vp = k[:, :, :L], v[:, :, :L]
+    read = nbytes(q) + 2 * B * G * L * D * 2
+    return {
+        "shape": f"q ({B}, {H}, {D}) k,v ({B}, {G}, {T}, {D}) bf16 kv_len={L}",
+        **timed("ms", lambda: decode_attention(q, k, v, L), 50),
+        **timed("array_kv_len_ms", lambda: decode_attention(q, k, v, lens), 50),
+        **timed("plain_ms", lambda: decode_attention_ref(q, k, v, lens), 50),
+        **timed("library_ms", lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kp, vp, enable_gqa=True), 50),
+        "bound_ms": (read + nbytes(q)) / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+    }
+
+
+def _decode_case(dev, gen):
     from repro_torch.kernels import (
         decode_attention,
         decode_attention_op,
@@ -267,62 +342,57 @@ def _decode_case(dev, gen):
         decode_attention_ref,
     )
 
-    B, H, G, D, T = 1, 32, 4, 64, 1024
+    B, T = 1, 1024
     worst = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q = torch.randn(B, H, D, device=dev, generator=gen).to(dtype)
-        k = torch.randn(B, G, T, D, device=dev, generator=gen).to(dtype)
-        v = torch.randn(B, G, T, D, device=dev, generator=gen).to(dtype)
-        for kv_len in (0, 1, 300, 1024):
-            out = decode_attention(q, k, v, kv_len)
-            ref = decode_attention_ref(q, k, v, kv_len)
-            err = max_err(out, ref)
-            print(f"  decode_attention {str(dtype)[6:]} T={T} kv_len={kv_len} "
-                  f"max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
-            check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
-                  f"decode_attention {dtype} kv_len={kv_len}: err {err}")
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
-        # The wrapper the model calls: (B, 1, H, D) queries against the
-        # (B, T, G, D) cache, with its own strides, at kv_lens the serve
-        # phase reaches (385-544) and the edges (0: a row with no key).
-        qm = torch.randn(B, 1, H, D, device=dev, generator=gen).to(dtype)
-        km = torch.randn(B, T, G, D, device=dev, generator=gen).to(dtype)
-        vm = torch.randn(B, T, G, D, device=dev, generator=gen).to(dtype)
-        for kv_len in (0, 1, 385, 513, 544, 1024):
-            out = decode_attention_op(qm, km, vm, kv_len)
-            ref = decode_attention_op_ref(qm, km, vm, kv_len)
-            err = max_err(out, ref)
-            print(f"  decode_attention_op {str(dtype)[6:]} cache ({B}, {T}, {G}, {D}) "
-                  f"kv_len={kv_len} max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
-            check(out.shape == (B, 1, H, D) and err <= TOL[dtype]
-                  and torch.isfinite(out).all().item(),
-                  f"decode_attention_op {dtype} kv_len={kv_len}: err {err}")
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
-    q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
-    k = torch.randn(B, G, T, D, device=dev, generator=gen).to(torch.bfloat16)
-    v = torch.randn(B, G, T, D, device=dev, generator=gen).to(torch.bfloat16)
-    # kv_len 300 as the model passes it, one int for the batch; and as a
-    # device array, the other form the wrapper takes.
-    L = 300
-    lens = torch.full((B,), L, dtype=torch.int32, device=dev)
-    kp, vp = k[:, :, :L], v[:, :, :L]
-    library = timed("library_ms", lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kp, vp, enable_gqa=True), 50)
-    read = nbytes(q) + 2 * B * G * L * D * 2
-    return {
+    # TinyLlama's decode (32 query heads on 4 KV heads of 64), then OLMoE's
+    # (16 on 16 KV heads of 128: one query head per KV head)
+    for H, G, D, kv_lens in ((32, 4, 64, (0, 1, 300, 1024)),
+                             (16, 16, 128, (0, 1, 300, 513, 544, 1024))):
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn(B, H, D, device=dev, generator=gen).to(dtype)
+            k = torch.randn(B, G, T, D, device=dev, generator=gen).to(dtype)
+            v = torch.randn(B, G, T, D, device=dev, generator=gen).to(dtype)
+            for kv_len in kv_lens:
+                out = decode_attention(q, k, v, kv_len)
+                ref = decode_attention_ref(q, k, v, kv_len)
+                err = max_err(out, ref)
+                print(f"  decode_attention {str(dtype)[6:]} H={H} G={G} D={D} T={T} "
+                      f"kv_len={kv_len} max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
+                check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
+                      f"decode_attention {dtype} H={H} G={G} D={D} kv_len={kv_len}: "
+                      f"err {err}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+            # The wrapper the model calls: (B, 1, H, D) queries against the
+            # (B, T, G, D) cache, with its own strides, at kv_lens the serve
+            # phases reach (385-544) and the edges (0: a row with no key).
+            qm = torch.randn(B, 1, H, D, device=dev, generator=gen).to(dtype)
+            km = torch.randn(B, T, G, D, device=dev, generator=gen).to(dtype)
+            vm = torch.randn(B, T, G, D, device=dev, generator=gen).to(dtype)
+            for kv_len in (0, 1, 385, 513, 544, 1024):
+                out = decode_attention_op(qm, km, vm, kv_len)
+                ref = decode_attention_op_ref(qm, km, vm, kv_len)
+                err = max_err(out, ref)
+                print(f"  decode_attention_op {str(dtype)[6:]} H={H} cache "
+                      f"({B}, {T}, {G}, {D}) kv_len={kv_len} max_abs_err={err:.3e} "
+                      f"tol={TOL[dtype]}", flush=True)
+                check(out.shape == (B, 1, H, D) and err <= TOL[dtype]
+                      and torch.isfinite(out).all().item(),
+                      f"decode_attention_op {dtype} H={H} G={G} D={D} kv_len={kv_len}: "
+                      f"err {err}")
+                worst[dtype] = max(worst.get(dtype, 0.0), err)
+    row = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:60",
-        "shape": f"q ({B}, {H}, {D}) k,v ({B}, {G}, {T}, {D}) bf16 kv_len={L}",
         "max_abs_err": worst[torch.bfloat16],
         "max_abs_err_f32": worst[torch.float32],
-        **timed("ms", lambda: decode_attention(q, k, v, L), 50),
-        **timed("array_kv_len_ms", lambda: decode_attention(q, k, v, lens), 50),
-        **timed("plain_ms", lambda: decode_attention_ref(q, k, v, lens), 50),
-        **library,
-        "bound_ms": (read + nbytes(q)) / HBM_BYTES_PER_S * 1e3,
-        "bound_by": "bytes",
+        **_decode_served(dev, gen, B, 32, 4, 64, T, 300),
+        "olmoe": _decode_served(dev, gen, B, 16, 16, 128, T, 300),
     }
+    o = row["olmoe"]
+    print(f"  decode_attention olmoe {o['shape']}: ms={o['ms']:.6f} "
+          f"sdpa_ms={o['library_ms']:.6f} bound_ms={o['bound_ms']:.6f} (bytes)", flush=True)
+    return row
 
 
 def _ssd_inputs(dev, gen, dtype, l, h, groups, decay, n=128):
@@ -564,7 +634,8 @@ def phase_transfer(dev):
 
 # ---------------------------------------------------------------------------
 def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
-           page_size=16, state_leaf=None, state_probe=None, compare=None):
+           page_size=16, state_leaf=None, state_probe=None, compare=None,
+           kernel_path=contextlib.nullcontext, gate_logits=True):
     """Drive ``model`` at full width in bf16 through the main path: random
     weights from seed 0, a WeightManager sleep/wake round trip, and a
     FunctionalServer answering 4 requests of 512, 384, 512 (the repeat) and
@@ -580,8 +651,14 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
     those are held to 2e-2, and the state's difference after the whole
     model and the decode reading with the state zeroed are reported.
     ``compare(params, toks, plain_logits)`` returns further fields to
-    report. Returns the launch counts of the main path and the result
-    fields."""
+    report. ``kernel_path`` is a context around the kernels' prefill and
+    decode steps of that comparison (``plain_path`` around the plain
+    path's), entered once each. ``gate_logits=False`` reports the prefill
+    and decode logits errors without holding them to 2e-2, for a model
+    whose own sensitivity puts a plain version perturbed far below one
+    bf16 ulp past that limit; the caller then holds each kernel call to its
+    plain version on the same inputs instead. Returns the launch counts of
+    the main path and the result fields."""
     from repro_torch.configs import get_config
     from repro_torch.core import make_functional_engine
     from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
@@ -597,6 +674,7 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     reference = [t.clone() for t in tree_leaves(params)]
     wm = WeightManager(make_functional_engine(), params=params)
+    del params                                   # the card holds only wm's copy
     sleep = wm.sleep()
     check(all(t.is_pinned() for t in tree_leaves(wm._host_copy)),
           "sleep must land the weights in pinned host memory")
@@ -632,7 +710,8 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
         check(counts[name] > 0, f"kernel {name} was not launched on the main path")
 
     toks = torch.as_tensor(p1, dtype=torch.long, device=dev)[None]
-    with state_probe() if state_probe else contextlib.nullcontext([]) as state_errs:
+    with kernel_path(), \
+            state_probe() if state_probe else contextlib.nullcontext([]) as state_errs:
         logits, caches, clen = prefill(params, toks, cfg, max_len=1024)
     with plain_path():
         plain, plain_caches, _ = prefill(params, toks, cfg, max_len=1024)
@@ -640,7 +719,6 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
           "prefill logits are not finite or have the wrong shape")
     rel = max_err(logits, plain) / plain.float().abs().max().item()
     extra = compare(params, toks, plain) if compare else {}
-    check(rel <= 2e-2, f"prefill logits differ from the plain path: {rel:.3e} of max")
     check(int(torch.argmax(logits[0])) == reqs[0].generated[0],
           "the served first token is not the prefill's argmax")
 
@@ -653,14 +731,19 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
             out.append(step[0])
         return torch.stack(out)
 
-    dec = decode_steps(caches)
+    with kernel_path():
+        dec = decode_steps(caches)
     with plain_path():
         dec_plain = decode_steps(plain_caches if decode_from_plain_prefill else caches)
     check(torch.isfinite(dec).all().item(), "decode logits are not finite")
     dec_rel = max(max_err(a, b) / b.float().abs().max().item()
                   for a, b in zip(dec, dec_plain))
-    check(dec_rel <= 2e-2,
-          f"decode logits differ from the plain path: {dec_rel:.3e} of max")
+    print(f"  {cfg.name} against the plain path: prefill logits {rel:.3e}, decode logits "
+          f"{dec_rel:.3e} of max |logit|; {json.dumps(extra, default=float)}", flush=True)
+    if gate_logits:
+        check(rel <= 2e-2, f"prefill logits differ from the plain path: {rel:.3e} of max")
+        check(dec_rel <= 2e-2,
+              f"decode logits differ from the plain path: {dec_rel:.3e} of max")
     check(torch.argmax(dec, -1).tolist() == reqs[0].generated[1:9],
           "the kernels' decode steps do not give the served tokens")
     state = {}
@@ -684,6 +767,7 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
     n_tokens = sum(len(r.generated) for r in reqs)
     return cfg, reqs, counts, dict(
         model=cfg.name, params=sum(t.numel() for t in tree_leaves(params)),
+        config_params=cfg.param_count(),
         weight_bytes=param_bytes(params), sleep_ms=sleep.seconds * 1e3,
         wake_ms=wake.seconds * 1e3, sleep_GBps=wm.nbytes / 1e9 / sleep.seconds,
         wake_GBps=wm.nbytes / 1e9 / wake.seconds, roundtrip_bit_exact=exact,
@@ -694,22 +778,23 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
         transfer_log=srv.transfer_log, launches=counts)
 
 
+@contextlib.contextmanager
+def _plain_attention():
+    """The model with K3 and K2 replaced by their plain versions."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels import decode_attention_op_ref, flash_attention_op_ref
+
+    with mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref), \
+            mock.patch.object(attention, "decode_attention_op", decode_attention_op_ref):
+        yield
+
+
 def phase_serve(dev):
     """TinyLlama-1.1B: prefill through K3, decode through K2, wake through
     K1. Decode is compared from the same caches, so the plain K2 is held
     to the kernel step by step (kv_len 513-520)."""
-    import repro_torch.models.attention as attention
-    from repro_torch.kernels import decode_attention_op_ref, flash_attention_op_ref
-
-    @contextlib.contextmanager
-    def plain_path():
-        with mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref), \
-                mock.patch.object(attention, "decode_attention_op",
-                                  decode_attention_op_ref):
-            yield
-
     _, _, counts, fields = _serve(
-        dev, "tinyllama-1.1b", plain_path,
+        dev, "tinyllama-1.1b", _plain_attention,
         ("relay_assemble", "flash_attention", "decode_attention"),
         decode_from_plain_prefill=False)
     report("serve", **fields)
@@ -814,6 +899,204 @@ def phase_serve_ssm(dev):
     return counts
 
 
+def phase_serve_moe(dev):
+    """OLMoE-1B-7B: 16 layers, each multi-head attention (16 heads of 128
+    on 16 KV heads; prefill through K3, decode through K2) and an MoE
+    channel of 64 experts, top 8; wake through K1 (each expert leaf 4 GiB,
+    4096 chunks).
+
+    A router logit moved by the last bits of a kernel's output can swap a
+    token's 8th and 9th expert, and a swap changes which later assignments
+    hit capacity, so free-running kernel and plain paths may differ by
+    O(1) with no kernel at fault. The comparison therefore runs the plain
+    path on the kernel path's routes: the router's top-k indices are
+    recorded on the kernels' prefill and 8 decode steps and replayed, call
+    for call, on the plain path, whose weights are its own probabilities
+    at those experts, renormalised as ``router`` does.
+
+    Even on the same routes this random-weight model carries a rounding
+    difference through 16 layers past 2e-2 of max |logit|: the plain path
+    whose attention output is given 1e-5 of relative noise (far below one
+    bf16 ulp, 3.9e-3) reads past it too (``logits_rel_err_plain_noise``).
+    So the replayed prefill and decode logits errors are reported, and what
+    is held is every K3 and K2 call of the kernels' prefill and 8 decode
+    steps against its plain version on the same inputs (``k3_same_input``,
+    ``k2_same_input``: max |difference| within the kernels' bf16 tolerance,
+    and the share of entries that differ), the decode argmax against the
+    served tokens, and the main path's checks. Also reported: the relative
+    difference of each layer's MoE input between the kernel path and the
+    replayed plain path in the prefill (``moe_input_rel_err_by_layer``), the
+    free-running plain prefill's logits error, the (layer, token, k) choices
+    where its routes differ from the kernels' (``routing_differs``, and as
+    sets of experts per token), and the prefill's assignments over capacity
+    (``dropped``)."""
+    import repro_torch.models.attention as attention
+    import repro_torch.models.moe as moe
+    import repro_torch.models.transformer as transformer
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention_op_ref, flash_attention_op_ref
+    from repro_torch.models import prefill
+    from repro_torch.models.moe import capacity, slot_positions
+
+    moe_cfg = get_config("olmoe-1b-7b")
+    real_router = moe.router
+    routes = []          # top_i of each router call on the kernel path, in order
+    replayed = []        # the same, as the plain path consumed them
+    same_input = {"flash_attention_op": [], "decode_attention_op": []}
+    moe_inputs = {"kernel": [], "plain": []}     # each MoE layer's input, in order
+
+    def recorder(into):
+        def record(params, x, cfg):
+            out = real_router(params, x, cfg)
+            into.append(out[1])
+            return out
+        return mock.patch.object(moe, "router", record)
+
+    def replaying(seq, used):
+        """The router returning seq's next top-k indices, weighted by this
+        path's own probabilities at them."""
+        def replay(params, x, cfg):
+            _, _, probs = real_router(params, x, cfg)
+            check(len(used) < len(seq),
+                  "the plain path called the router more often than the kernels")
+            top_i = seq[len(used)]
+            check(top_i.shape == probs.shape[:-1] + (cfg.top_k,),
+                  f"replayed routes {tuple(top_i.shape)} for probs {tuple(probs.shape)}")
+            used.append(top_i)
+            top_p = probs.gather(-1, top_i)
+            top_p = top_p / top_p.sum(dim=-1, keepdim=True).clamp_min(1e-9)
+            return top_p.to(x.dtype), top_i, probs
+        return mock.patch.object(moe, "router", replay)
+
+    def probing(name, plain):
+        """attention.<name> running the kernel, held to ``plain`` on the
+        same inputs: (max |difference|, share of entries that differ)."""
+        kernel = getattr(attention, name)
+
+        def run(*args, **kw):
+            out = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            same_input[name].append(
+                (max_err(out, ref), (out != ref).float().mean().item()))
+            return out
+        return mock.patch.object(attention, name, run)
+
+    def moe_inputs_to(into):
+        def run(p, x, cfg, **kw):
+            into.append(x)
+            return moe.moe_ffn(p, x, cfg, **kw)
+        return mock.patch.object(transformer, "moe_ffn", run)
+
+    @contextlib.contextmanager
+    def kernel_path():
+        with recorder(routes), probing("flash_attention_op", flash_attention_op_ref), \
+                probing("decode_attention_op", decode_attention_op_ref), \
+                moe_inputs_to(moe_inputs["kernel"]):
+            yield
+
+    @contextlib.contextmanager
+    def plain_path():
+        with _plain_attention(), replaying(routes, replayed), \
+                moe_inputs_to(moe_inputs["plain"]):
+            yield
+
+    def noisy_attention(eta):
+        """The plain prefill attention with relative noise ``eta`` in its
+        fp32 output before the bf16 rounding."""
+        def run(q, k, v, **kw):
+            out = flash_attention_op_ref(q.float(), k.float(), v.float(), **kw)
+            g = torch.Generator(device=out.device).manual_seed(0)
+            return (out * (1 + eta * torch.randn(out.shape, device=out.device,
+                                                 generator=g))).to(q.dtype)
+        return mock.patch.object(attention, "flash_attention_op", run)
+
+    def compare(params, toks, plain):
+        L = moe_cfg.n_layers
+
+        def rel(*ctxs, free=None):
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(_plain_attention())
+                stack.enter_context(recorder(free) if free is not None
+                                    else replaying(routes[:L], []))
+                for c in ctxs:
+                    stack.enter_context(c)
+                logits = prefill(params, toks, moe_cfg, max_len=1024)[0]
+            return max_err(logits, plain) / plain.float().abs().max().item()
+
+        free = []
+        free_running = rel(free=free)
+        # one MoE layer (layer 0's weights) at the prefill's and a decode
+        # step's shapes, issued from Python as the model does, beside the
+        # bound: every expert's weights read once (the buffers hold every
+        # expert) against the expert products on the tensor cores
+        p0 = {k: params["blocks"][0][k][0] for k in ("router", "w_gate", "w_up", "w_down")}
+        gen = torch.Generator(device=plain.device).manual_seed(3)
+        moe_ms = {}
+        for S in (toks.shape[1], 1):
+            x = torch.randn(1, S, moe_cfg.d_model, device=plain.device,
+                            generator=gen).to(moe_cfg.dtype)
+            for _ in range(2):
+                moe.moe_ffn(p0, x, moe_cfg)
+            flops = 3 * 2 * moe_cfg.n_experts * capacity(S, moe_cfg) * moe_cfg.d_model \
+                * moe_cfg.d_ff
+            moe_ms[f"S={S}"] = {
+                "eager_ms": _event_ms(lambda: [moe.moe_ffn(p0, x, moe_cfg) for _ in range(10)],
+                                      10),
+                "bound_ms": max(flops / BF16_FLOPS,
+                                (nbytes(*p0.values()) + 2 * nbytes(x)) / HBM_BYTES_PER_S) * 1e3}
+        kernel = routes[:L]                          # the kernels' prefill
+        C = capacity(toks.shape[1], moe_cfg)
+
+        def dropped(layers):
+            return sum(int((slot_positions(t, moe_cfg.n_experts) >= C).sum())
+                       for t in layers)
+
+        def set_differs(a, b):        # experts of a token's a missing from b
+            return int((a[..., :, None] != b[..., None, :]).all(-1).sum())
+
+        return {
+            "moe_ffn_one_layer": moe_ms,
+            "logits_rel_err_free_running": free_running,
+            "routing_differs": sum(int((a != b).sum()) for a, b in zip(kernel, free)),
+            "routing_differs_as_sets": sum(set_differs(a, b) for a, b in zip(kernel, free)),
+            "assignments": sum(t.numel() for t in kernel),
+            "capacity": C,
+            "dropped": dropped(kernel),
+            "dropped_plain_free_running": dropped(free),
+            "logits_rel_err_plain_again": rel(),
+            "logits_rel_err_plain_noise": {
+                f"{eta:.0e}": rel(noisy_attention(eta)) for eta in (1e-5, 1e-4, 1e-3, 4e-3)},
+        }
+
+    cfg, reqs, counts, fields = _serve(
+        dev, "olmoe-1b-7b", plain_path,
+        ("relay_assemble", "flash_attention", "decode_attention"),
+        decode_from_plain_prefill=False, compare=compare, kernel_path=kernel_path,
+        gate_logits=False)
+    check(len(routes) == len(replayed) == cfg.n_layers * 9
+          and all(a is b for a, b in zip(routes, replayed)),
+          f"{len(routes)} routes recorded on the kernels' prefill and 8 decode steps, "
+          f"{len(replayed)} replayed; want {cfg.n_layers * 9} each, in order")
+    fields["moe_input_rel_err_by_layer"] = [
+        (a.float() - b.float()).norm().item() / b.float().norm().item()
+        for a, b in zip(moe_inputs["kernel"][:cfg.n_layers], moe_inputs["plain"][:cfg.n_layers])]
+    for name, key, n in (("flash_attention_op", "k3_same_input", cfg.n_layers),
+                         ("decode_attention_op", "k2_same_input", cfg.n_layers * 8)):
+        errs = same_input[name]
+        fields[key] = {"calls": len(errs), "max_abs_err": max(e for e, _ in errs),
+                       "differ_share": max(d for _, d in errs)}
+        check(len(errs) == n and fields[key]["max_abs_err"] <= TOL[torch.bfloat16],
+              f"{name} differs from its plain version on the same inputs: {fields[key]}")
+    new_tokens = sum(len(r.generated) - 1 for r in reqs)   # the first comes from prefill
+    check(counts["flash_attention"] == cfg.n_layers * len(reqs)
+          and counts["decode_attention"] == cfg.n_layers * new_tokens,
+          f"K3 launched {counts['flash_attention']} times and K2 {counts['decode_attention']}: "
+          f"want {cfg.n_layers} per prefill and per decode step")
+    check(counts["ssd_chunk"] == 0, "K4 ran on a model with no SSM layer")
+    report("serve-moe", **fields)
+    return counts
+
+
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -844,6 +1127,7 @@ def main(argv=None) -> int:
             ("transfer", lambda: phase_transfer(dev)),
             ("serve", lambda: counts.update(serve=phase_serve(dev))),
             ("serve-ssm", lambda: counts.update({"serve-ssm": phase_serve_ssm(dev)})),
+            ("serve-moe", lambda: counts.update({"serve-moe": phase_serve_moe(dev)})),
         ):
             t0 = time.monotonic()
             run()

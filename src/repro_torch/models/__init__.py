@@ -1,7 +1,9 @@
 """The model families on PyTorch: the dense GQA transformer (prefill and
 decode through the K3 and K2 kernels), Mamba2 (SSD prefill through the K4
-kernel, recurrent decode), and periods that interleave the two (the hybrid
-plan, without MoE). MoE and cross-attention are not ported yet."""
+kernel, recurrent decode), the MoE channel (top-k routing with capacity
+drops, experts as products over the expert axis), and periods that
+interleave them (the hybrid plan, MoE cadences). Cross-attention and
+expert parallelism are not ported yet."""
 from .attention import (
     decode_self_attention,
     init_kv_cache,
@@ -21,6 +23,7 @@ from .layers import (
     unembed,
 )
 from .model import decode_step, forward, prefill
+from .moe import load_balance_loss, moe_ffn, router
 from .ssm import (
     causal_conv,
     conv_decode_step,

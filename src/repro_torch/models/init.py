@@ -4,8 +4,12 @@ weights, every block leaf stacked along a leading ``n_periods`` axis, and
 
 ``init_params`` draws the JAX package's distributions (scaled normals,
 ones, zeros) from a ``torch.Generator`` — the numbers differ from
-``jax.random``'s. ``params_from_jax`` converts a JAX parameter tree (as
-numpy arrays) so both packages can run on the same weights.
+``jax.random``'s. A normal's default scale is (fan-in)^-0.5, the first
+axis of the unstacked leaf as the JAX package takes it; where that is not
+the second-last axis (the stacked expert leaves, whose JAX scale is
+E^-0.5) the scale is passed explicitly. ``params_from_jax`` converts a
+JAX parameter tree (as numpy arrays) so both packages can run on the same
+weights.
 """
 from __future__ import annotations
 
@@ -23,7 +27,8 @@ def _dense(gen, shape, dtype, device, scale=None) -> torch.Tensor:
     scale = scale if scale is not None else shape[-2] ** -0.5
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (w * scale).to(device=device, dtype=dtype)
+    # in place: one fp32 draw of OLMoE's stacked expert leaf is 8.6 GB
+    return w.mul_(scale).to(device=device, dtype=dtype)
 
 
 def init_params(cfg, generator: Optional[torch.Generator] = None,
@@ -37,8 +42,8 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     d, dt, n = cfg.d_model, cfg.dtype, cfg.n_periods
     H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
 
-    def dense(*shape, scale=None):
-        return _dense(gen, (n,) + shape, dt, device, scale)
+    def dense(*shape, scale=None, dtype=dt):
+        return _dense(gen, (n,) + shape, dtype, device, scale)
 
     def const(value, *shape):
         return torch.full((n,) + shape, value, dtype=dt, device=device)
@@ -74,6 +79,15 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
         if channel == "mlp":
             p.update(ln2=const(1.0, d), w_gate=dense(d, cfg.d_ff),
                      w_up=dense(d, cfg.d_ff), w_down=dense(cfg.d_ff, d))
+        elif channel == "moe":
+            # JAX scales (E, d_in, d_out) expert leaves by E^-0.5, the
+            # first axis of the unstacked shape (ROADMAP.md, queue 3)
+            E, f = cfg.n_experts, cfg.d_ff
+            p.update(ln2=const(1.0, d),
+                     router=dense(d, E, scale=d ** -0.5, dtype=torch.float32),
+                     w_gate=dense(E, d, f, scale=E ** -0.5),
+                     w_up=dense(E, d, f, scale=E ** -0.5),
+                     w_down=dense(E, f, d, scale=E ** -0.5))
         blocks.append(p)
     params["blocks"] = blocks
     return params

@@ -21,17 +21,16 @@ def forward(
     cache_len: Optional[int] = None,
     window: int = 0,
 ):
-    """Returns (logits, new_caches, aux_loss); aux_loss is 0 for the
-    dense stack (it carries the MoE balance loss in the JAX package)."""
+    """Returns (logits, new_caches, aux_loss); aux_loss is the MoE layers'
+    summed load-balance loss (fp32, 0 without MoE layers)."""
     x = embed(params, tokens)
-    x, new_caches = run_blocks(
+    x, new_caches, aux = run_blocks(
         params, x, cfg, mode=mode, caches=caches, cache_len=cache_len,
         window=window,
     )
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = unembed(params, x)
-    return logits, new_caches, torch.zeros((), dtype=torch.float32,
-                                           device=logits.device)
+    return logits, new_caches, aux
 
 
 def prefill(

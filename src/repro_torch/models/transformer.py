@@ -3,9 +3,11 @@ with parameters and caches stacked along a leading ``n_periods`` axis as
 in the JAX package. JAX's ``lax.scan`` over periods becomes a Python loop;
 caches are updated in place (PyTorch has no need to rebuild them).
 
-Attention and SSM mixers, MLP channels and no channel at all are ported,
-in any interleave within a period (the hybrid plan); the cross-attention
-mixer and the MoE channel raise ``NotImplementedError``.
+Attention and SSM mixers, MLP and MoE channels and no channel at all are
+ported, in any interleave within a period (the hybrid plan, MoE cadences);
+each MoE layer's load-balance loss is summed into the aux that
+``run_blocks`` returns. The cross-attention mixer and expert parallelism
+(``cfg.moe_ep``) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,18 +17,18 @@ import torch
 
 from .attention import decode_self_attention, init_kv_cache, self_attention
 from .layers import mlp_forward, rms_norm
+from .moe import moe_ffn
 from .ssm import init_ssm_state, mamba_block, mamba_block_decode
 
 _NOT_PORTED = {
-    "cross_attn": "the cross-attention mixer",
-    "moe": "the MoE channel",
+    "cross_attn": "the cross-attention mixer (ROADMAP.md, queue 1 item 8)",
+    "moe_ep": "expert-parallel MoE, moe_ep=True (ROADMAP.md, queue 1 item 12)",
 }
 
 
 def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{_NOT_PORTED[kind]} is not ported to repro_torch yet "
-        f"(ROADMAP.md, queue 2)"
+        f"{_NOT_PORTED[kind]} is not ported to repro_torch yet"
     )
 
 
@@ -34,8 +36,8 @@ def check_supported(cfg) -> None:
     for mixer, channel in cfg.layer_plan():
         if mixer in _NOT_PORTED:
             raise _not_ported(mixer)
-        if channel in _NOT_PORTED:
-            raise _not_ported(channel)
+        if channel == "moe" and cfg.moe_ep:
+            raise _not_ported("moe_ep")
 
 
 # ---------------------------------------------------------------------------
@@ -84,10 +86,12 @@ def super_block(
     cache_len: Optional[int],
     window: int,
 ):
+    """Returns (hidden, caches, aux): aux is the period's summed MoE
+    load-balance loss, None when the period has no MoE layer."""
+    check_supported(cfg)
     new_caches: List = []
+    aux = None
     for j, (mixer, channel) in enumerate(cfg.layer_plan()):
-        if mixer in _NOT_PORTED:
-            raise _not_ported(mixer)
         p = params_period[j]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         cache_j = caches[j] if caches is not None else None
@@ -111,13 +115,16 @@ def super_block(
             for name, t in state.items():
                 cache_j[name].copy_(t)
         x = x + y
-        if channel != "none":
-            if channel in _NOT_PORTED:
-                raise _not_ported(channel)
+        if channel == "moe":
+            h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+            y2, aux_j = moe_ffn(p, h2, cfg, return_aux=True)
+            x = x + y2
+            aux = aux_j if aux is None else aux + aux_j
+        elif channel != "none":
             h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
             x = x + mlp_forward(p, h2, cfg.mlp)
         new_caches.append(cache_j)
-    return x, new_caches
+    return x, new_caches, aux
 
 
 # ---------------------------------------------------------------------------
@@ -133,17 +140,24 @@ def run_blocks(
     cache_len: Optional[int] = None,
     window: int = 0,
 ):
-    """Returns (hidden, caches). Period i uses leaf[i] of every stacked
-    parameter and cache; the caches are the same objects, updated."""
+    """Returns (hidden, caches, aux_loss). Period i uses leaf[i] of every
+    stacked parameter and cache; the caches are the same objects, updated.
+    aux_loss is the sum of the MoE layers' load-balance losses (fp32; 0
+    without MoE layers)."""
     blocks = params["blocks"]           # leaves: (n_periods, ...)
+    aux = None
     for i in range(cfg.n_periods):
         params_period = [{k: a[i] for k, a in p.items()} for p in blocks]
         caches_period = (
             [{k: a[i] for k, a in c.items()} for c in caches]
             if caches is not None else None
         )
-        x, _ = super_block(
+        x, _, aux_i = super_block(
             params_period, x, cfg, mode=mode, caches=caches_period,
             cache_len=cache_len, window=window,
         )
-    return x, caches
+        if aux_i is not None:
+            aux = aux_i if aux is None else aux + aux_i
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, caches, aux

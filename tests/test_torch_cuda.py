@@ -11,6 +11,8 @@ that has only PyTorch:
 Tolerances: bf16 2e-2 (one bf16 ulp of the output), fp32 1e-4 with TF32
 off (another summation order), bit-exact for copies.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -35,7 +37,8 @@ from repro_torch.kernels import (
     ssd_chunk_op_ref,
     ssd_chunk_ref,
 )
-from repro_torch.models import decode_step, init_params, prefill
+from repro_torch.models import decode_step, init_params, moe_ffn, prefill, router
+from repro_torch.models.moe import capacity, slot_positions
 from repro_torch.tree import tree_map
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +72,8 @@ def _close(out, ref, dtype):
     (1, 8, 2, 512, 512, 128, 256, 0),     # D = 128 with a window
     (1, 8, 2, 64, 576, 64, 0, 512),       # a chunk of a chunked prefill
     (1, 4, 2, 100, 100, 20, 8, 0),        # D = 20: element staging, zero-padded
+    (1, 16, 16, 512, 512, 128, 0, 0),     # OLMoE's prefill: MHA, D = 128
+    (1, 16, 16, 200, 200, 128, 0, 0),     # OLMoE, a ragged q and key tile
 ])
 def test_flash_matches_plain(dev, dtype, B, H, G, Sq, T, D, window, q_offset):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -93,6 +98,9 @@ def test_flash_matches_plain(dev, dtype, B, H, G, Sq, T, D, window, q_offset):
     (32, 1, 300, 64, (37, 300)),        # R = 32
     (32, 4, 300, 128, (37, 300)),       # D = 128
     (8, 2, 100, 20, (37, 100)),         # D = 20: element staging in bf16
+    (16, 16, 1024, 128, (300, 1024)),   # OLMoE's decode: R = 1, D = 128
+    (16, 16, 1024, 128, (0, 513)),      # OLMoE, no key beside a ragged tile
+    (16, 16, 1024, 128, 544),           # OLMoE, one length passed by value
 ])
 def test_decode_matches_plain(dev, dtype, H, G, T, D, kv):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -336,3 +344,62 @@ def test_reduced_mamba2_on_the_card_matches_cpu(dev):
     for c_cache, g_cache in zip(cc, gc):
         for name in c_cache:
             _close(g_cache[name], c_cache[name], torch.float32)
+
+
+def _olmoe_experts(S):
+    """OLMoE's routing (64 experts, top 8, capacity factor 1.25) at reduced
+    widths in fp32, with its init's scales."""
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(), n_experts=64,
+                              top_k=8, capacity_factor=1.25)
+    g = torch.Generator().manual_seed(0)
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    p = {"router": torch.randn(d, E, generator=g) * d ** -0.5,
+         "w_gate": torch.randn(E, d, f, generator=g) * E ** -0.5,
+         "w_up": torch.randn(E, d, f, generator=g) * E ** -0.5,
+         "w_down": torch.randn(E, f, d, generator=g) * E ** -0.5}
+    return cfg, p, torch.randn(2, S, d, generator=g)
+
+
+@pytest.mark.parametrize("S", [1, 512])
+def test_moe_ffn_on_the_card_matches_cpu(dev, S):
+    """moe_ffn on the card against the same call on the CPU in fp32 (TF32
+    off): the same routes and drops, the output within 1e-4 of its largest
+    magnitude (the E^-0.5 expert scale makes outputs of several hundred)."""
+    cfg, p, x = _olmoe_experts(S)
+    gp = {k: t.to(dev) for k, t in p.items()}
+    ci, gi = router(p, x, cfg)[1], router(gp, x.to(dev), cfg)[1]
+    assert torch.equal(gi.cpu(), ci)
+    pos = slot_positions(ci, cfg.n_experts)
+    assert torch.equal(slot_positions(gi, cfg.n_experts).cpu(), pos)
+    dropped = int((pos >= capacity(S, cfg)).sum())
+    want, aux = moe_ffn(p, x, cfg, return_aux=True)
+    got, gaux = moe_ffn(gp, x.to(dev), cfg, return_aux=True)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-4,
+                               atol=1e-4 * scale, err_msg=f"{dropped} dropped")
+    np.testing.assert_allclose(gaux.item(), aux.item(), rtol=1e-4)
+
+
+def test_reduced_olmoe_on_the_card_matches_cpu(dev):
+    """Prefill (K3, MoE layers with capacity drops) and 4 greedy decode
+    steps (K2) on the card against the plain versions on the CPU, same fp32
+    weights."""
+    cfg = get_config("olmoe-1b-7b").reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_params = tree_map(lambda t: t.to(dev), cpu_params)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))).long()
+    before = (flash_attention.launches, decode_attention.launches)
+    cl, cc, cn = prefill(cpu_params, toks, cfg, max_len=48)
+    gl, gc, gn = prefill(gpu_params, toks.to(dev), cfg, max_len=48)
+    _close(gl, cl, torch.float32)
+    for _ in range(4):
+        tok = torch.argmax(cl, -1)
+        assert torch.equal(torch.argmax(gl, -1).cpu(), tok)
+        cl, cc = decode_step(cpu_params, tok, cc, cn, cfg)
+        gl, gc = decode_step(gpu_params, tok.to(dev), gc, gn, cfg)
+        cn += 1
+        gn += 1
+        _close(gl, cl, torch.float32)
+    assert (flash_attention.launches - before[0],
+            decode_attention.launches - before[1]) == (cfg.n_layers, 4 * cfg.n_layers)

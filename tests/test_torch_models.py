@@ -59,8 +59,13 @@ def test_params_from_jax_round_trip_is_exact():
 
 
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "qwen2-72b", "gemma-7b",
-                                  "mamba2-370m"])
+                                  "mamba2-370m", "olmoe-1b-7b",
+                                  "llama4-maverick-400b-a17b"])
 def test_init_params_matches_jax_layout(name):
+    """Leaf names, shapes and dtypes in the JAX tree's order, and the JAX
+    scales: d^-0.5 for a dense or SSM input projection and the router, and
+    E^-0.5 for the stacked expert leaves (JAX takes the first axis of the
+    unstacked (E, d_in, d_out) shape)."""
     jcfg = jax_config(name).reduced()
     tcfg = get_config(name).reduced()
     shapes = jax.eval_shape(lambda: jm.init_params(jax.random.PRNGKey(0), jcfg))
@@ -68,8 +73,18 @@ def test_init_params_matches_jax_layout(name):
     want = [(l.shape, np.dtype(l.dtype).name) for l in jax.tree.leaves(shapes)]
     got = [(tuple(t.shape), str(t.dtype)[6:]) for t in tree_leaves(tp)]
     assert got == want
-    w = tp["blocks"][0]["w_gate" if tcfg.d_ff else "w_x"]
-    assert abs(w.std().item() * tcfg.d_model ** 0.5 - 1.0) < 0.05
+    for p, (_, channel) in zip(tp["blocks"], tcfg.layer_plan()):
+        if channel == "moe":
+            E = tcfg.n_experts
+            assert p["router"].dtype == torch.float32
+            assert p["router"].shape == (tcfg.n_periods, tcfg.d_model, E)
+            assert abs(p["router"].std().item() * tcfg.d_model ** 0.5 - 1.0) < 0.05
+            for leaf in ("w_gate", "w_up", "w_down"):
+                assert p[leaf].dtype == tcfg.dtype
+                assert abs(p[leaf].std().item() * E ** 0.5 - 1.0) < 0.05, leaf
+        else:
+            w = p["w_gate" if tcfg.d_ff else "w_x"]
+            assert abs(w.std().item() * tcfg.d_model ** 0.5 - 1.0) < 0.05
 
 
 @pytest.mark.parametrize("attn_impl", ["xla", "pallas"])
@@ -161,6 +176,10 @@ def test_windowed_prefill_matches_jax():
 @pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "olmoe-1b-7b",
                                   "llama-3.2-vision-90b"])
 def test_unported_families_raise(name):
+    """Cross-attention (the VLM) is not ported; the MoE models are, but not
+    their expert-parallel form (moe_ep=True)."""
     cfg = get_config(name).reduced()
+    if cfg.uses_moe:
+        cfg = dataclasses.replace(cfg, moe_ep=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(cfg, torch.Generator().manual_seed(0), CPU)

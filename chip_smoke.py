@@ -13,7 +13,10 @@ Phases, one result line each:
              plain version and one PyTorch library call where there is one;
              K1, K2 and K3 at TinyLlama's shapes and at OLMoE's (a 4 GiB
              expert leaf; 16 heads of 128 on 16 KV heads), the second set
-             under "olmoe" in their rows;
+             under "olmoe" in their rows; K2 and K3 at the VLM's 64 query
+             heads on 8 KV heads of 128 ("vlm" in their rows): K3 without
+             the causal mask over 576 frontend keys (and a ragged 100), K2
+             over all 576;
              K3 also through the model-layout wrapper and at a 2048-token
              prompt (its share of the operations bound); K3 and K4 with the
              HGMMA count `cuobjdump -sass` finds in their bf16 kernels; K4 on
@@ -39,10 +42,25 @@ Phases, one result line each:
              own sensitivity puts past 2e-2 even on the same routes), the
              free-running gap, the routes that differ and the assignments
              dropped over capacity are reported
+  serve-vlm  cross-attention: llama-3.2-vision-90b at full width cut to 2
+             periods (10 layers, 21.3 GB), the same round trip, then prefill
+             and 31 greedy decode steps with a (1, 576, 8192) frontend for
+             prompts of 512, 384 and 200 tokens through the model's entry
+             points (the server passes no frontend, as in the JAX package):
+             K3 10 per prefill (2 without the causal mask), K2 10 per decode
+             step; each K3 and K2 call of the first prompt's prefill and 8
+             decode steps held to its plain version on the same inputs, the
+             logits to the plain path, and a second frontend must move them
+  serve-audio  musicgen-large at full width and depth (6.46 GB): the round
+             trip and the 4 requests from tokens, then a prefill from
+             (1, 512, 2048) frame embeddings (inputs_embeds) and 8 decode
+             steps, held as serve-vlm holds its first prompt
 
-Launch counts are zeroed just before each serve phase and read just after it.
-The script ends with the kernels JSON line (launches summed over the serve
-phases, and per phase), the card's name and power limit, and
+Launch counts are zeroed just before each serve phase's main path and read
+just after it (musicgen's inputs_embeds run is a path of its own,
+serve-audio:inputs_embeds). The script ends with the kernels JSON line
+(launches summed over the paths, and per path), the card's name and power
+limit, and
 {"ok": true, "device": {...}}. It needs a CUDA card and the repository's
 src/ beside it; it imports nothing of JAX or of the JAX package.
 Float32 comparisons run with TF32 off (matmul and cuDNN).
@@ -205,29 +223,34 @@ def _relay_case(dev, gen):
     return row
 
 
-def _flash_served(dev, gen, B, H, G, D, S):
-    """K3 at a served prefill shape in bf16: device and eager ms, through
-    the model-layout wrapper too (its own strides; held bit-equal to the
-    kernel's layout), the plain version's and SDPA's, and the bound."""
+def _flash_served(dev, gen, B, H, G, D, S, T=None, causal=True):
+    """K3 at a served prefill shape in bf16, S queries on T keys (T = S by
+    default): device and eager ms, through the model-layout wrapper too
+    (its own strides; held bit-equal to the kernel's layout), the plain
+    version's and SDPA's, and the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention, flash_attention_op, flash_attention_ref
 
+    T = S if T is None else T
     q = torch.randn(B, H, S, D, device=dev, generator=gen).to(torch.bfloat16)
-    k = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
-    v = torch.randn(B, G, S, D, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(B, G, T, D, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(B, G, T, D, device=dev, generator=gen).to(torch.bfloat16)
     qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    shape = f"q ({B}, {H}, {S}, {D}) k,v ({B}, {G}, {S}, {D}) bf16 causal"
-    check(torch.equal(flash_attention_op(qm, km, vm), flash_attention(q, k, v).transpose(1, 2)),
+    shape = (f"q ({B}, {H}, {S}, {D}) k,v ({B}, {G}, {T}, {D}) bf16 "
+             f"{'causal' if causal else 'not causal'}")
+    check(torch.equal(flash_attention_op(qm, km, vm, causal=causal),
+                      flash_attention(q, k, v, causal=causal).transpose(1, 2)),
           f"flash_attention_op differs from flash_attention at {shape}")
-    flops = 2 * B * H * S * S * D    # causal: half of 4 * B * H * S^2 * D
+    # causal (T = S): half of 4 * B * H * S^2 * D
+    flops = 2 * B * H * S * S * D if causal else 4 * B * H * S * T * D
     moved = nbytes(q, k, v, q)
     return {
         "shape": shape,
-        **timed("ms", lambda: flash_attention(q, k, v), 20),
-        **timed("op_ms", lambda: flash_attention_op(qm, km, vm), 20),
-        **timed("plain_ms", lambda: flash_attention_ref(q, k, v), 20),
+        **timed("ms", lambda: flash_attention(q, k, v, causal=causal), 20),
+        **timed("op_ms", lambda: flash_attention_op(qm, km, vm, causal=causal), 20),
+        **timed("plain_ms", lambda: flash_attention_ref(q, k, v, causal=causal), 20),
         **timed("library_ms", lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, enable_gqa=True), 20),
+            q, k, v, is_causal=causal, enable_gqa=True), 20),
         "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
         else "bytes",
@@ -268,7 +291,26 @@ def _flash_case(dev, gen):
             check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
                   f"flash_attention {dtype} H={H} G={G} D={D} rows with no key: err {err}")
             worst[dtype] = max(worst[dtype], err)
-    # The served shapes, TinyLlama's in the row and OLMoE's beside it
+    # The VLM's (64 query heads on 8 KV heads of 128): cross-attention, not
+    # causal, over its 576 frontend keys from a 512-token prompt and from one
+    # query row, over a ragged 100-key frontend (a last key tile of 36), and
+    # its causal self-attention
+    H, G, D = 64, 8, 128
+    for dtype in (torch.bfloat16, torch.float32):
+        for S, T, causal in ((512, 576, False), (1, 576, False), (200, 100, False),
+                             (512, 512, True)):
+            q = torch.randn(B, H, S, D, device=dev, generator=gen).to(dtype)
+            k = torch.randn(B, G, T, D, device=dev, generator=gen).to(dtype)
+            v = torch.randn(B, G, T, D, device=dev, generator=gen).to(dtype)
+            out = flash_attention(q, k, v, causal=causal)
+            err = max_err(out, flash_attention_ref(q, k, v, causal=causal))
+            print(f"  flash_attention {str(dtype)[6:]} H={H} G={G} D={D} S={S} T={T} "
+                  f"causal={causal} max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
+            check(err <= TOL[dtype] and torch.isfinite(out).all().item(),
+                  f"flash_attention {dtype} H={H} G={G} D={D} S={S} T={T} causal={causal}: "
+                  f"err {err}")
+            worst[dtype] = max(worst[dtype], err)
+    # The served shapes, TinyLlama's in the row, OLMoE's and the VLM's beside it
     row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -277,11 +319,14 @@ def _flash_case(dev, gen):
         "max_abs_err_f32": worst[torch.float32],
         **_flash_served(dev, gen, B, 32, 4, 64, 512),
         "olmoe": _flash_served(dev, gen, B, 16, 16, 128, 512),
+        "vlm": {"cross": _flash_served(dev, gen, B, 64, 8, 128, 512, 576, causal=False),
+                "self": _flash_served(dev, gen, B, 64, 8, 128, 512)},
     }
-    o = row["olmoe"]
-    print(f"  flash_attention olmoe {o['shape']}: ms={o['ms']:.5f} op_ms={o['op_ms']:.5f} "
-          f"sdpa_ms={o['library_ms']:.5f} bound_ms={o['bound_ms']:.5f} ({o['bound_by']})",
-          flush=True)
+    for name, o in (("olmoe", row["olmoe"]), ("vlm cross", row["vlm"]["cross"]),
+                    ("vlm self", row["vlm"]["self"])):
+        print(f"  flash_attention {name} {o['shape']}: ms={o['ms']:.5f} op_ms={o['op_ms']:.5f} "
+              f"plain_ms={o['plain_ms']:.5f} sdpa_ms={o['library_ms']:.5f} "
+              f"bound_ms={o['bound_ms']:.5f} ({o['bound_by']})", flush=True)
     # A long prompt, where the products and not the bytes bound the call.
     H, G, D, S = 32, 4, 64, 2048
     q = torch.randn(B, H, S, D, device=dev, generator=gen).to(torch.bfloat16)
@@ -380,6 +425,28 @@ def _decode_case(dev, gen):
                       f"decode_attention_op {dtype} H={H} G={G} D={D} kv_len={kv_len}: "
                       f"err {err}")
                 worst[dtype] = max(worst.get(dtype, 0.0), err)
+    # The VLM's decode (64 query heads on 8 KV heads of 128, R = 8): its
+    # self-attention cache, and cross-attention over the 576 frontend keys,
+    # every key valid (kv_len = T, not a power of two), through both
+    # wrappers
+    H, G, D = 64, 8, 128
+    for dtype in (torch.bfloat16, torch.float32):
+        for T_vlm, kv_len in ((T, 300), (576, 300), (576, 576)):
+            q = torch.randn(B, H, D, device=dev, generator=gen).to(dtype)
+            k = torch.randn(B, G, T_vlm, D, device=dev, generator=gen).to(dtype)
+            v = torch.randn(B, G, T_vlm, D, device=dev, generator=gen).to(dtype)
+            out = decode_attention(q, k, v, kv_len)
+            err = max_err(out, decode_attention_ref(q, k, v, kv_len))
+            qm, km, vm = q[:, None], k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+            out_m = decode_attention_op(qm, km, vm, kv_len)
+            err = max(err, max_err(out_m, decode_attention_op_ref(qm, km, vm, kv_len)))
+            print(f"  decode_attention(_op) {str(dtype)[6:]} H={H} G={G} D={D} T={T_vlm} "
+                  f"kv_len={kv_len} max_abs_err={err:.3e} tol={TOL[dtype]}", flush=True)
+            check(err <= TOL[dtype] and torch.isfinite(out).all().item()
+                  and torch.isfinite(out_m).all().item(),
+                  f"decode_attention {dtype} H={H} G={G} D={D} T={T_vlm} kv_len={kv_len}: "
+                  f"err {err}")
+            worst[dtype] = max(worst[dtype], err)
     row = {
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
@@ -388,10 +455,14 @@ def _decode_case(dev, gen):
         "max_abs_err_f32": worst[torch.float32],
         **_decode_served(dev, gen, B, 32, 4, 64, T, 300),
         "olmoe": _decode_served(dev, gen, B, 16, 16, 128, T, 300),
+        "vlm": {"self": _decode_served(dev, gen, B, 64, 8, 128, T, 300),
+                "cross": _decode_served(dev, gen, B, 64, 8, 128, 576, 576)},
     }
-    o = row["olmoe"]
-    print(f"  decode_attention olmoe {o['shape']}: ms={o['ms']:.6f} "
-          f"sdpa_ms={o['library_ms']:.6f} bound_ms={o['bound_ms']:.6f} (bytes)", flush=True)
+    for name, o in (("olmoe", row["olmoe"]), ("vlm self", row["vlm"]["self"]),
+                    ("vlm cross", row["vlm"]["cross"])):
+        print(f"  decode_attention {name} {o['shape']}: ms={o['ms']:.6f} "
+              f"plain_ms={o['plain_ms']:.6f} sdpa_ms={o['library_ms']:.6f} "
+              f"bound_ms={o['bound_ms']:.6f} (bytes)", flush=True)
     return row
 
 
@@ -660,30 +731,17 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
     plain version on the same inputs instead. Returns the launch counts of
     the main path and the result fields."""
     from repro_torch.configs import get_config
-    from repro_torch.core import make_functional_engine
     from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
-    from repro_torch.models import decode_step, init_params, param_bytes, prefill
-    from repro_torch.serving import FunctionalServer, WeightManager
-    from repro_torch.tree import tree_leaves, tree_map
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import FunctionalServer
+    from repro_torch.tree import tree_map
 
     cfg = get_config(model)                      # full width, bf16
     check(cfg.dtype == torch.bfloat16, f"{model} must default to bf16")
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()                        # --- the main path starts here
     t_main = time.monotonic()
-    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
-    reference = [t.clone() for t in tree_leaves(params)]
-    wm = WeightManager(make_functional_engine(), params=params)
-    del params                                   # the card holds only wm's copy
-    sleep = wm.sleep()
-    check(all(t.is_pinned() for t in tree_leaves(wm._host_copy)),
-          "sleep must land the weights in pinned host memory")
-    wake = wm.wake()
-    params = wm.params
-    exact = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
-                for a, b in zip(reference, tree_leaves(params)))
-    check(exact, "sleep/wake round trip is not bit-exact")
-    del reference
+    params, weights = _round_trip(dev, cfg)
 
     srv = FunctionalServer(cfg, params=params, max_len=1024, max_running=2,
                            page_size=page_size)
@@ -766,16 +824,45 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
 
     n_tokens = sum(len(r.generated) for r in reqs)
     return cfg, reqs, counts, dict(
-        model=cfg.name, params=sum(t.numel() for t in tree_leaves(params)),
-        config_params=cfg.param_count(),
-        weight_bytes=param_bytes(params), sleep_ms=sleep.seconds * 1e3,
-        wake_ms=wake.seconds * 1e3, sleep_GBps=wm.nbytes / 1e9 / sleep.seconds,
-        wake_GBps=wm.nbytes / 1e9 / wake.seconds, roundtrip_bit_exact=exact,
+        model=cfg.name, **weights,
         ttft_ms=[r.ttft * 1e3 for r in reqs], hit_tokens=[r.hit_tokens for r in reqs],
         tokens=n_tokens, serve_s=serve_s, tokens_per_s=n_tokens / serve_s,
         main_path_s=main_s, peak_mem_GB=peak / 1e9,
         logits_rel_err=rel, decode_logits_rel_err=dec_rel, **state, **extra,
         transfer_log=srv.transfer_log, launches=counts)
+
+
+def _round_trip(dev, cfg):
+    """Random weights from seed 0 on the card and a WeightManager
+    sleep/wake round trip, held bit-exact and to the leaves' bytes
+    (``param_bytes(cfg)``, sized on the meta device). Returns the woken
+    parameters and the result fields."""
+    from repro_torch.core import make_functional_engine
+    from repro_torch.models import init_params, param_bytes, tree_bytes
+    from repro_torch.serving import WeightManager
+    from repro_torch.tree import tree_leaves
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    reference = [t.clone() for t in tree_leaves(params)]
+    wm = WeightManager(make_functional_engine(), params=params)
+    del params                                   # the card holds only wm's copy
+    sleep = wm.sleep()
+    check(all(t.is_pinned() for t in tree_leaves(wm._host_copy)),
+          "sleep must land the weights in pinned host memory")
+    wake = wm.wake()
+    params = wm.params
+    exact = all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                for a, b in zip(reference, tree_leaves(params)))
+    check(exact, "sleep/wake round trip is not bit-exact")
+    del reference
+    weight_bytes = tree_bytes(params)
+    check(weight_bytes == wm.nbytes == param_bytes(cfg),
+          f"{weight_bytes} bytes woken, {wm.nbytes} slept, {param_bytes(cfg)} in the leaves")
+    return params, dict(
+        params=sum(t.numel() for t in tree_leaves(params)), weight_bytes=weight_bytes,
+        sleep_ms=sleep.seconds * 1e3, wake_ms=wake.seconds * 1e3,
+        sleep_GBps=wm.nbytes / 1e9 / sleep.seconds, wake_GBps=wm.nbytes / 1e9 / wake.seconds,
+        roundtrip_bit_exact=exact)
 
 
 @contextlib.contextmanager
@@ -787,6 +874,154 @@ def _plain_attention():
     with mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref), \
             mock.patch.object(attention, "decode_attention_op", decode_attention_op_ref):
         yield
+
+
+@contextlib.contextmanager
+def _probing(same_input):
+    """K3 and K2 as the model calls them, each call's output held to the
+    plain version's on the same inputs: (max |difference|, share of entries
+    that differ, causal) appended to ``same_input[name]``."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels import decode_attention_op_ref, flash_attention_op_ref
+
+    def probe(name, plain):
+        kernel = getattr(attention, name)
+
+        def run(*args, **kw):
+            out = kernel(*args, **kw)
+            ref = plain(*args, **kw)
+            same_input.setdefault(name, []).append(
+                (max_err(out, ref), (out != ref).float().mean().item(), kw.get("causal", True)))
+            return out
+        return mock.patch.object(attention, name, run)
+
+    with probe("flash_attention_op", flash_attention_op_ref), \
+            probe("decode_attention_op", decode_attention_op_ref):
+        yield
+
+
+def _same_input_fields(same_input, n_k3, n_k2):
+    """The probes' readings, checked: ``n_k3`` K3 and ``n_k2`` K2 calls,
+    each within the bf16 tolerance of its plain version."""
+    fields = {}
+    for name, key, n in (("flash_attention_op", "k3_same_input", n_k3),
+                         ("decode_attention_op", "k2_same_input", n_k2)):
+        errs = same_input.get(name, [])
+        fields[key] = {"calls": len(errs), "max_abs_err": max((e[0] for e in errs), default=0.0),
+                       "differ_share": max((e[1] for e in errs), default=0.0)}
+        if name == "flash_attention_op":
+            fields[key]["not_causal_calls"] = sum(not e[2] for e in errs)
+            fields[key]["max_abs_err_not_causal"] = max(
+                (e[0] for e in errs if not e[2]), default=0.0)
+        check(len(errs) == n and fields[key]["max_abs_err"] <= TOL[torch.bfloat16],
+              f"{name} differs from its plain version on the same inputs: {fields[key]}")
+    return fields
+
+
+@contextlib.contextmanager
+def _noisy_attention(eta, seed=0):
+    """The plain attention (K3's and K2's plain versions) with relative
+    noise ``eta`` in its fp32 output before the bf16 rounding: how far the
+    model carries a change far below one bf16 ulp (3.9e-3)."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels import decode_attention_op_ref, flash_attention_op_ref
+
+    def noisy(plain):
+        def run(q, k, v, *args, **kw):
+            out = plain(q.float(), k.float(), v.float(), *args, **kw)
+            g = torch.Generator(device=out.device).manual_seed(seed)
+            return (out * (1 + eta * torch.randn(out.shape, device=out.device,
+                                                 generator=g))).to(q.dtype)
+        return run
+
+    with mock.patch.object(attention, "flash_attention_op", noisy(flash_attention_op_ref)), \
+            mock.patch.object(attention, "decode_attention_op", noisy(decode_attention_op_ref)):
+        yield
+
+
+def _entry_points(params, cfg, prompt, steps=8, **inputs):
+    """Prefill ``prompt`` (token ids, or None with ``inputs_embeds``) and
+    ``steps`` greedy decode steps through the kernels, every K3 and K2 call
+    held to its plain version on the same inputs; then the plain path's
+    prefill, and its decode steps from a copy of the kernels' prefill
+    caches fed the kernels' tokens. ``inputs`` go to the prefill, and a
+    frontend among them to every decode step too. Returns the kernels'
+    prefill logits, their greedy tokens (the prefill's first) and the
+    fields, the prefill and decode logits errors against the plain path
+    (relative to its max |logit|) among them."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.tree import tree_map
+
+    kw = {k: v for k, v in inputs.items() if k == "frontend"}
+    same_input = {}
+    with _probing(same_input):
+        logits, caches, n = prefill(params, prompt, cfg, max_len=1024, **inputs)
+        start = tree_map(torch.clone, caches)
+        toks, dec = [torch.argmax(logits, -1)], []
+        for i in range(steps):
+            step, caches = decode_step(params, toks[-1], caches, n + i, cfg, **kw)
+            dec.append(step[0])
+            toks.append(torch.argmax(step, -1))
+    dec_plain = []
+    with _plain_attention():
+        plain = prefill(params, prompt, cfg, max_len=1024, **inputs)[0]
+        for i in range(steps):
+            step, start = decode_step(params, toks[i], start, n + i, cfg, **kw)
+            dec_plain.append(step[0])
+    check(logits.shape == (1, cfg.vocab) and torch.isfinite(logits).all().item()
+          and all(torch.isfinite(d).all().item() for d in dec),
+          "logits are not finite or have the wrong shape")
+    fields = dict(
+        logits_rel_err=max_err(logits, plain) / plain.float().abs().max().item(),
+        decode_logits_rel_err=max(max_err(a, b) / b.float().abs().max().item()
+                                  for a, b in zip(dec, dec_plain)),
+        **_same_input_fields(same_input, cfg.n_layers, steps * cfg.n_layers))
+    return logits, plain, [int(t) for t in toks], fields
+
+
+def _plain_noise(params, cfg, prompt, etas=(1e-5, 1e-4, 1e-3), seeds=(0, 1, 2),
+                 steps=8, **inputs):
+    """The plain path given relative noise ``eta`` in every attention
+    output (``_noisy_attention``, one draw per seed) against the plain path
+    without: the prefill logits, and the logits of ``steps`` decode steps
+    from the plain prefill's caches fed the plain path's greedy tokens, as
+    ``_entry_points`` compares the kernels. Returns {eta: [prefill, decode]
+    errors relative to max |logit|, the largest over the seeds}: the
+    model's own sensitivity, against which a 2e-2 logits limit is read."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.tree import tree_map
+
+    kw = {k: v for k, v in inputs.items() if k == "frontend"}
+
+    def rel(a, b):
+        return max_err(a, b) / b.float().abs().max().item()
+
+    with _plain_attention():
+        plain, caches, n = prefill(params, prompt, cfg, max_len=1024, **inputs)
+    toks = [torch.argmax(plain, -1)]
+
+    def decode(greedy):
+        c, out = tree_map(torch.clone, caches), []
+        for i in range(steps):
+            step, c = decode_step(params, toks[i], c, n + i, cfg, **kw)
+            out.append(step[0])
+            if greedy:
+                toks.append(torch.argmax(step, -1))
+        return out
+
+    with _plain_attention():
+        base = decode(greedy=True)
+    out = {}
+    for eta in etas:
+        worst = [0.0, 0.0]
+        for seed in seeds:
+            with _noisy_attention(eta, seed):
+                logits = prefill(params, prompt, cfg, max_len=1024, **inputs)[0]
+                dec = decode(greedy=False)
+            worst = [max(worst[0], rel(logits, plain)),
+                     max(worst[1], *(rel(a, b) for a, b in zip(dec, base)))]
+        out[f"{eta:.0e}"] = worst
+    return out
 
 
 def phase_serve(dev):
@@ -930,11 +1165,9 @@ def phase_serve_moe(dev):
     where its routes differ from the kernels' (``routing_differs``, and as
     sets of experts per token), and the prefill's assignments over capacity
     (``dropped``)."""
-    import repro_torch.models.attention as attention
     import repro_torch.models.moe as moe
     import repro_torch.models.transformer as transformer
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention_op_ref, flash_attention_op_ref
     from repro_torch.models import prefill
     from repro_torch.models.moe import capacity, slot_positions
 
@@ -942,7 +1175,7 @@ def phase_serve_moe(dev):
     real_router = moe.router
     routes = []          # top_i of each router call on the kernel path, in order
     replayed = []        # the same, as the plain path consumed them
-    same_input = {"flash_attention_op": [], "decode_attention_op": []}
+    same_input = {}      # each K3 / K2 call against its plain version (_probing)
     moe_inputs = {"kernel": [], "plain": []}     # each MoE layer's input, in order
 
     def recorder(into):
@@ -968,19 +1201,6 @@ def phase_serve_moe(dev):
             return top_p.to(x.dtype), top_i, probs
         return mock.patch.object(moe, "router", replay)
 
-    def probing(name, plain):
-        """attention.<name> running the kernel, held to ``plain`` on the
-        same inputs: (max |difference|, share of entries that differ)."""
-        kernel = getattr(attention, name)
-
-        def run(*args, **kw):
-            out = kernel(*args, **kw)
-            ref = plain(*args, **kw)
-            same_input[name].append(
-                (max_err(out, ref), (out != ref).float().mean().item()))
-            return out
-        return mock.patch.object(attention, name, run)
-
     def moe_inputs_to(into):
         def run(p, x, cfg, **kw):
             into.append(x)
@@ -989,9 +1209,7 @@ def phase_serve_moe(dev):
 
     @contextlib.contextmanager
     def kernel_path():
-        with recorder(routes), probing("flash_attention_op", flash_attention_op_ref), \
-                probing("decode_attention_op", decode_attention_op_ref), \
-                moe_inputs_to(moe_inputs["kernel"]):
+        with recorder(routes), _probing(same_input), moe_inputs_to(moe_inputs["kernel"]):
             yield
 
     @contextlib.contextmanager
@@ -999,16 +1217,6 @@ def phase_serve_moe(dev):
         with _plain_attention(), replaying(routes, replayed), \
                 moe_inputs_to(moe_inputs["plain"]):
             yield
-
-    def noisy_attention(eta):
-        """The plain prefill attention with relative noise ``eta`` in its
-        fp32 output before the bf16 rounding."""
-        def run(q, k, v, **kw):
-            out = flash_attention_op_ref(q.float(), k.float(), v.float(), **kw)
-            g = torch.Generator(device=out.device).manual_seed(0)
-            return (out * (1 + eta * torch.randn(out.shape, device=out.device,
-                                                 generator=g))).to(q.dtype)
-        return mock.patch.object(attention, "flash_attention_op", run)
 
     def compare(params, toks, plain):
         L = moe_cfg.n_layers
@@ -1065,7 +1273,7 @@ def phase_serve_moe(dev):
             "dropped_plain_free_running": dropped(free),
             "logits_rel_err_plain_again": rel(),
             "logits_rel_err_plain_noise": {
-                f"{eta:.0e}": rel(noisy_attention(eta)) for eta in (1e-5, 1e-4, 1e-3, 4e-3)},
+                f"{eta:.0e}": rel(_noisy_attention(eta)) for eta in (1e-5, 1e-4, 1e-3, 4e-3)},
         }
 
     cfg, reqs, counts, fields = _serve(
@@ -1080,13 +1288,7 @@ def phase_serve_moe(dev):
     fields["moe_input_rel_err_by_layer"] = [
         (a.float() - b.float()).norm().item() / b.float().norm().item()
         for a, b in zip(moe_inputs["kernel"][:cfg.n_layers], moe_inputs["plain"][:cfg.n_layers])]
-    for name, key, n in (("flash_attention_op", "k3_same_input", cfg.n_layers),
-                         ("decode_attention_op", "k2_same_input", cfg.n_layers * 8)):
-        errs = same_input[name]
-        fields[key] = {"calls": len(errs), "max_abs_err": max(e for e, _ in errs),
-                       "differ_share": max(d for _, d in errs)}
-        check(len(errs) == n and fields[key]["max_abs_err"] <= TOL[torch.bfloat16],
-              f"{name} differs from its plain version on the same inputs: {fields[key]}")
+    fields.update(_same_input_fields(same_input, cfg.n_layers, cfg.n_layers * 8))
     new_tokens = sum(len(r.generated) - 1 for r in reqs)   # the first comes from prefill
     check(counts["flash_attention"] == cfg.n_layers * len(reqs)
           and counts["decode_attention"] == cfg.n_layers * new_tokens,
@@ -1095,6 +1297,179 @@ def phase_serve_moe(dev):
     check(counts["ssd_chunk"] == 0, "K4 ran on a model with no SSM layer")
     report("serve-moe", **fields)
     return counts
+
+
+@contextlib.contextmanager
+def _counting_not_causal(counter):
+    """K3's launches from calls without the causal mask (cross-attention),
+    added to ``counter["flash_attention:not_causal"]``."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels import flash_attention
+
+    kernel = attention.flash_attention_op
+
+    def run(*args, **kw):
+        before = flash_attention.launches
+        out = kernel(*args, **kw)
+        if not kw.get("causal", True):
+            counter["flash_attention:not_causal"] += flash_attention.launches - before
+        return out
+
+    with mock.patch.object(attention, "flash_attention_op", run):
+        yield
+
+
+def phase_serve_vlm(dev):
+    """llama-3.2-vision-90b at full width (d_model 8192, 64 query heads on 8
+    KV heads of 128, d_ff 28672, vocab 128256) cut to 2 periods: 10 layers,
+    the 5th and 10th cross-attention to a (1, 576, 8192) frontend made from
+    a seed (the vision encoder is a stub, as in the JAX package). Wake
+    through K1, prefill through K3 (8 causal launches and 2 without the
+    mask), decode through K2 (8 on the self-attention caches, 2 over the
+    576 frontend keys per step). The JAX server passes no frontend, so the
+    requests go through the model's entry points: prefill and 31 greedy
+    decode steps for prompts of 512, 384 and 200 tokens.
+
+    Checked: the round trip bit-exact; the launches, exactly; every K3 and
+    K2 call of the first prompt's prefill and 8 decode steps within the
+    bf16 tolerance of its plain version on the same inputs; the decode
+    steps giving the served tokens; and a second frontend moving the
+    prefill logits by more than 2e-2 of max |logit|. Reported: the prefill
+    and decode logits against the plain path, and the plain path's own
+    reading with relative noise in its attention output."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
+    from repro_torch.models import decode_step, prefill
+
+    full = get_config("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(full, n_layers=2 * full.period)
+    check(cfg.dtype == torch.bfloat16 and sum(
+        m == "cross_attn" for m, _ in cfg.layer_plan()) == 1, "not the VLM's period")
+    n_cross = cfg.n_periods
+
+    def frontend(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(1, cfg.n_frontend_tokens, cfg.d_model, device=dev,
+                           generator=g).to(cfg.dtype)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=n) for n in (512, 384, 200)]
+    requests = []
+    not_causal = {"flash_attention:not_causal": 0}
+    reset_launch_counts()                        # --- the main path starts here
+    t_main = time.monotonic()
+    params, weights = _round_trip(dev, cfg)
+    fe = frontend(1)
+    with _counting_not_causal(not_causal):
+        for p in prompts:
+            toks = torch.as_tensor(p, dtype=torch.long, device=dev)[None]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            logits, caches, n = prefill(params, toks, cfg, max_len=1024, frontend=fe)
+            generated = [int(torch.argmax(logits, -1))]
+            t1 = time.monotonic()
+            for i in range(31):
+                tok = torch.tensor([generated[-1]], dtype=torch.long, device=dev)
+                logits, caches = decode_step(params, tok, caches, n + i, cfg, frontend=fe)
+                generated.append(int(torch.argmax(logits, -1)))
+            t2 = time.monotonic()
+            requests.append({"prompt": len(p), "prefill_ms": (t1 - t0) * 1e3,
+                             "decode_tokens_per_s": 31 / (t2 - t1), "generated": generated})
+    torch.cuda.synchronize()
+    counts = {**launch_counts(), **route_counts(), **not_causal}   # --- ends here
+    main_s = time.monotonic() - t_main
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    for r in requests:
+        check(all(0 <= t < cfg.vocab for t in r["generated"]), f"bad generation {r}")
+    steps = 31 * len(requests)
+    check(counts["flash_attention"] == cfg.n_layers * len(requests)
+          and counts["flash_attention:not_causal"] == n_cross * len(requests)
+          and counts["decode_attention"] == cfg.n_layers * steps
+          and counts["ssd_chunk"] == 0 and counts["relay_assemble"] > 0,
+          f"launches {counts}: want K3 {cfg.n_layers} per prefill ({n_cross} not causal), "
+          f"K2 {cfg.n_layers} per decode step, no K4")
+
+    toks = torch.as_tensor(prompts[0], dtype=torch.long, device=dev)[None]
+    logits, plain, greedy, fields = _entry_points(params, cfg, toks, frontend=fe)
+    other = prefill(params, toks, cfg, max_len=1024, frontend=frontend(2))[0]
+    fields["frontend_moves_logits"] = max_err(other, logits) / logits.float().abs().max().item()
+    fields["logits_rel_err_plain_noise"] = _plain_noise(params, cfg, toks, frontend=fe)
+    print(f"  {cfg.name} (2 periods) against the plain path: prefill logits "
+          f"{fields['logits_rel_err']:.3e}, decode logits {fields['decode_logits_rel_err']:.3e} "
+          f"of max |logit|; K3 {fields['k3_same_input']}, K2 {fields['k2_same_input']}; "
+          f"another frontend moves the logits {fields['frontend_moves_logits']:.3e}; plain "
+          f"path with noise {fields['logits_rel_err_plain_noise']}", flush=True)
+    check(greedy == requests[0]["generated"][:9],
+          "the probed prefill and decode steps do not give the served tokens")
+    check(fields["frontend_moves_logits"] > 2e-2,
+          "another frontend leaves the logits within 2e-2: the cross layers do not read it")
+    check(fields["logits_rel_err"] <= 2e-2,
+          f"prefill logits differ from the plain path: {fields['logits_rel_err']:.3e} of max")
+    check(fields["decode_logits_rel_err"] <= 2e-2,
+          f"decode logits differ from the plain path: {fields['decode_logits_rel_err']:.3e}")
+    report("serve-vlm", model=cfg.name, n_layers=cfg.n_layers, cut_from=full.n_layers,
+           **weights, frontend=list(fe.shape), requests=requests, main_path_s=main_s,
+           peak_mem_GB=peak / 1e9, **fields, launches=counts)
+    return counts
+
+
+def phase_serve_audio(dev):
+    """musicgen-large at full width and depth (48 layers, 32 heads of 64 on
+    32 KV heads, vocab 2048): the round trip and the 4 requests of ``_serve``
+    through FunctionalServer from tokens, K3 48 times per prefill and K2 48
+    times per decode step. Then its audio entry, counted apart (path
+    ``serve-audio:inputs_embeds``): a prefill from (1, 512, 2048) frame
+    embeddings made from a seed (the codec is a stub, as in the JAX
+    package) and 8 greedy decode steps.
+
+    In both comparisons (the first request's prefill and 8 decode steps,
+    and the inputs_embeds run) every K3 and K2 call is held to its plain
+    version on the same inputs. The logits against the plain path are
+    reported, not held to 2e-2: this random-weight model carries a rounding
+    through 48 layers to about that limit, and the plain path itself, given
+    1e-5 of relative noise in its attention output, reads past it
+    (``logits_rel_err_plain_noise``: [prefill, decode])."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    embeds, token_probes = {}, {}
+
+    def compare(params, toks, plain):
+        from repro_torch.configs import get_config
+
+        cfg = get_config("musicgen-large")
+        g = torch.Generator(device=plain.device).manual_seed(3)
+        emb = torch.randn(1, 512, cfg.d_model, device=plain.device, generator=g).to(cfg.dtype)
+        reset_launch_counts()                    # --- the inputs_embeds path
+        _, _, _, fields = _entry_points(params, cfg, None, inputs_embeds=emb)
+        embeds["counts"] = launch_counts()       # --- ends here
+        fields["logits_rel_err_plain_noise"] = _plain_noise(params, cfg, None,
+                                                            inputs_embeds=emb)
+        embeds["fields"] = fields
+        return {"logits_rel_err_plain_noise": _plain_noise(params, cfg, toks),
+                "inputs_embeds": fields}
+
+    cfg, reqs, counts, fields = _serve(
+        dev, "musicgen-large", _plain_attention,
+        ("relay_assemble", "flash_attention", "decode_attention"),
+        decode_from_plain_prefill=False, compare=compare,
+        kernel_path=lambda: _probing(token_probes), gate_logits=False)
+    fields.update(_same_input_fields(token_probes, cfg.n_layers, 8 * cfg.n_layers))
+    new_tokens = sum(len(r.generated) - 1 for r in reqs)
+    check(counts["flash_attention"] == cfg.n_layers * len(reqs)
+          and counts["decode_attention"] == cfg.n_layers * new_tokens
+          and counts["ssd_chunk"] == 0,
+          f"K3 launched {counts['flash_attention']} times and K2 {counts['decode_attention']}: "
+          f"want {cfg.n_layers} per prefill and per decode step")
+    e = embeds["counts"]
+    check(e["flash_attention"] == cfg.n_layers and e["decode_attention"] == 8 * cfg.n_layers,
+          f"the inputs_embeds path launched K3 {e['flash_attention']} and K2 "
+          f"{e['decode_attention']} times: want {cfg.n_layers} and {8 * cfg.n_layers}")
+    report("serve-audio", **fields)
+    return counts, e
 
 
 # ---------------------------------------------------------------------------
@@ -1128,6 +1503,9 @@ def main(argv=None) -> int:
             ("serve", lambda: counts.update(serve=phase_serve(dev))),
             ("serve-ssm", lambda: counts.update({"serve-ssm": phase_serve_ssm(dev)})),
             ("serve-moe", lambda: counts.update({"serve-moe": phase_serve_moe(dev)})),
+            ("serve-vlm", lambda: counts.update({"serve-vlm": phase_serve_vlm(dev)})),
+            ("serve-audio", lambda: counts.update(zip(
+                ("serve-audio", "serve-audio:inputs_embeds"), phase_serve_audio(dev)))),
         ):
             t0 = time.monotonic()
             run()

@@ -22,7 +22,10 @@ def block_order(n_qt: int, H: int, B: int) -> List[Tuple[int, int, int]]:
     """(q tile, head, batch) of each block of the bf16 kernel, by block
     index (``block_coords`` in ``csrc/flash_attention.cu``): the last q tile
     first, since under the causal mask it has the most key tiles, and the
-    R = H / G heads that share a KV head next to each other."""
+    R = H / G heads that share a KV head next to each other. Without the
+    causal mask (cross-attention) every q tile walks all key tiles, so the
+    first half of the order changes nothing and the second still keeps a
+    KV head's tiles in L2 for its R heads."""
     return [(n_qt - 1 - i // (H * B), i % (H * B) % H, i % (H * B) // H)
             for i in range(n_qt * H * B)]
 

@@ -1,11 +1,14 @@
-"""Attention: GQA self-attention (full / sliding-window) and decode with
-linear or ring-buffer KV caches.
+"""Attention: GQA self-attention (full / sliding-window), decode with
+linear or ring-buffer KV caches, and cross-attention to a frontend's
+embeddings.
 
 There is one attention path: prefill and training run the K3
 ``flash_attention`` kernel, decode runs the K2 ``decode_attention`` kernel
 (their wrappers take the plain PyTorch versions only for CPU tensors).
+Cross-attention takes the same two kernels: K3 without the causal mask
+for S > 1 query positions, K2 over all F frontend keys for one.
 The projections stay plain matrix products, as XLA computed them outside
-any kernel. Cross-attention is not ported yet (ROADMAP queue 2).
+any kernel.
 """
 from __future__ import annotations
 
@@ -101,3 +104,32 @@ def decode_self_attention(
     o = decode_attention_op(q, cache["k"], cache["v"], kv_len)
     y = out_proj(params, o, cfg)
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (modality frontend consumption; no causal mask, no RoPE)
+# ---------------------------------------------------------------------------
+def cross_attention(
+    params: Dict,
+    x: torch.Tensor,           # (B, S, d) decoder states
+    frontend: torch.Tensor,    # (B, F, d) precomputed patch/frame embeddings
+    cfg,
+) -> torch.Tensor:
+    """q from the decoder states, K/V from the frontend, recomputed at
+    every call (decode included: the layer keeps no cache), as in the JAX
+    package. The frontend is taken in the states' dtype, which the kernels
+    need for q, k and v alike. One query position (a decode step) runs K2
+    with every frontend key valid; K3 at Sq = 1 would fill one row of each
+    64-row q tile."""
+    B, S, _ = x.shape
+    F = frontend.shape[1]
+    H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    frontend = frontend.to(x.dtype)
+    q = (x @ params["wq"]).view(B, S, H, D)
+    k = (frontend @ params["wk_cross"]).view(B, F, G, D)
+    v = (frontend @ params["wv_cross"]).view(B, F, G, D)
+    if S == 1:
+        o = decode_attention_op(q, k, v, F)
+    else:
+        o = flash_attention_op(q, k, v, causal=False)
+    return out_proj(params, o, cfg)

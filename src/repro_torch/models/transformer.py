@@ -3,11 +3,12 @@ with parameters and caches stacked along a leading ``n_periods`` axis as
 in the JAX package. JAX's ``lax.scan`` over periods becomes a Python loop;
 caches are updated in place (PyTorch has no need to rebuild them).
 
-Attention and SSM mixers, MLP and MoE channels and no channel at all are
-ported, in any interleave within a period (the hybrid plan, MoE cadences);
-each MoE layer's load-balance loss is summed into the aux that
-``run_blocks`` returns. The cross-attention mixer and expert parallelism
-(``cfg.moe_ep``) raise ``NotImplementedError``.
+Attention, cross-attention and SSM mixers, MLP and MoE channels and no
+channel at all are ported, in any interleave within a period (the hybrid
+plan, MoE cadences, the VLM's cross-attention cadence); each MoE layer's
+load-balance loss is summed into the aux that ``run_blocks`` returns. A
+cross-attention layer reads the ``frontend`` embeddings and keeps no
+cache. Expert parallelism (``cfg.moe_ep``) raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,29 +16,23 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .attention import decode_self_attention, init_kv_cache, self_attention
+from .attention import (
+    cross_attention,
+    decode_self_attention,
+    init_kv_cache,
+    self_attention,
+)
 from .layers import mlp_forward, rms_norm
 from .moe import moe_ffn
 from .ssm import init_ssm_state, mamba_block, mamba_block_decode
 
-_NOT_PORTED = {
-    "cross_attn": "the cross-attention mixer (ROADMAP.md, queue 1 item 8)",
-    "moe_ep": "expert-parallel MoE, moe_ep=True (ROADMAP.md, queue 1 item 12)",
-}
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{_NOT_PORTED[kind]} is not ported to repro_torch yet"
-    )
-
 
 def check_supported(cfg) -> None:
-    for mixer, channel in cfg.layer_plan():
-        if mixer in _NOT_PORTED:
-            raise _not_ported(mixer)
-        if channel == "moe" and cfg.moe_ep:
-            raise _not_ported("moe_ep")
+    if cfg.moe_ep and any(channel == "moe" for _, channel in cfg.layer_plan()):
+        raise NotImplementedError(
+            "expert-parallel MoE, moe_ep=True (ROADMAP.md, queue 1 item 12) "
+            "is not ported to repro_torch yet"
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -51,8 +46,10 @@ def init_caches(cfg, batch: int, max_len: int, window: int = 0,
     for mixer, _ in cfg.layer_plan():
         if mixer == "attn":
             one = init_kv_cache(cfg, batch, max_len, window, device=device)
-        else:
+        elif mixer == "ssm":
             one = init_ssm_state(cfg, batch, device=device)
+        else:                            # cross_attn has no mutable state
+            one = {}
         caches.append({
             name: torch.zeros((cfg.n_periods,) + tuple(a.shape), dtype=a.dtype,
                               device=a.device)
@@ -82,6 +79,7 @@ def super_block(
     cfg,
     *,
     mode: str,                       # train | prefill | decode
+    frontend: Optional[torch.Tensor],
     caches: Optional[List],
     cache_len: Optional[int],
     window: int,
@@ -95,7 +93,9 @@ def super_block(
         p = params_period[j]
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
         cache_j = caches[j] if caches is not None else None
-        if mode == "train":
+        if mixer == "cross_attn":    # every mode; its cache ({}) is unchanged
+            y = cross_attention(p, h, frontend, cfg)
+        elif mode == "train":
             y = (self_attention(p, h, cfg, window=window) if mixer == "attn"
                  else mamba_block(p, h, cfg))
         elif mixer == "attn" and mode == "decode":
@@ -136,6 +136,7 @@ def run_blocks(
     cfg,
     *,
     mode: str = "train",
+    frontend: Optional[torch.Tensor] = None,
     caches: Optional[List] = None,
     cache_len: Optional[int] = None,
     window: int = 0,
@@ -143,7 +144,13 @@ def run_blocks(
     """Returns (hidden, caches, aux_loss). Period i uses leaf[i] of every
     stacked parameter and cache; the caches are the same objects, updated.
     aux_loss is the sum of the MoE layers' load-balance losses (fp32; 0
-    without MoE layers)."""
+    without MoE layers). ``frontend`` (B, F, d) feeds the cross-attention
+    layers; a model that has one raises ``ValueError`` without it."""
+    if frontend is None and any(m == "cross_attn" for m, _ in cfg.layer_plan()):
+        raise ValueError(
+            f"{cfg.name} has cross-attention layers: pass frontend=(B, F, d_model) "
+            f"embeddings"
+        )
     blocks = params["blocks"]           # leaves: (n_periods, ...)
     aux = None
     for i in range(cfg.n_periods):
@@ -153,8 +160,8 @@ def run_blocks(
             if caches is not None else None
         )
         x, _, aux_i = super_block(
-            params_period, x, cfg, mode=mode, caches=caches_period,
-            cache_len=cache_len, window=window,
+            params_period, x, cfg, mode=mode, frontend=frontend,
+            caches=caches_period, cache_len=cache_len, window=window,
         )
         if aux_i is not None:
             aux = aux_i if aux is None else aux + aux_i

@@ -29,6 +29,7 @@ from repro_torch.kernels import (
     decode_attention_op_ref,
     decode_attention_ref,
     flash_attention,
+    flash_attention_op,
     flash_attention_ref,
     relay_assemble,
     relay_assemble_ref,
@@ -74,6 +75,7 @@ def _close(out, ref, dtype):
     (1, 4, 2, 100, 100, 20, 8, 0),        # D = 20: element staging, zero-padded
     (1, 16, 16, 512, 512, 128, 0, 0),     # OLMoE's prefill: MHA, D = 128
     (1, 16, 16, 200, 200, 128, 0, 0),     # OLMoE, a ragged q and key tile
+    (1, 64, 8, 512, 512, 128, 0, 0),      # the VLM's self-attention: R = 8, D = 128
 ])
 def test_flash_matches_plain(dev, dtype, B, H, G, Sq, T, D, window, q_offset):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -84,6 +86,27 @@ def test_flash_matches_plain(dev, dtype, B, H, G, Sq, T, D, window, q_offset):
     out = flash_attention(q, k, v, window=window, q_offset=q_offset)
     assert flash_attention.launches == n + 1
     _close(out, flash_attention_ref(q, k, v, window=window, q_offset=q_offset), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,G,Sq,T,D", [
+    (1, 64, 8, 512, 576, 128),            # the VLM's cross-attention prefill: 9 key tiles
+    (1, 64, 8, 1, 576, 128),              # one query row
+    (1, 8, 2, 200, 100, 64),              # a ragged frontend: a last key tile of 36
+])
+def test_flash_without_causal_mask_matches_plain(dev, dtype, B, H, G, Sq, T, D):
+    """K3 with causal=False (cross-attention: every query sees all T keys,
+    T != Sq), in both layouts: the model's wrapper gives the same bits."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(B, H, Sq, D, device=dev, generator=g).to(dtype)
+    k = torch.randn(B, G, T, D, device=dev, generator=g).to(dtype)
+    v = torch.randn(B, G, T, D, device=dev, generator=g).to(dtype)
+    n = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False)
+    assert flash_attention.launches == n + 1
+    _close(out, flash_attention_ref(q, k, v, causal=False), dtype)
+    qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    assert torch.equal(flash_attention_op(qm, km, vm, causal=False).transpose(1, 2), out)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -101,6 +124,8 @@ def test_flash_matches_plain(dev, dtype, B, H, G, Sq, T, D, window, q_offset):
     (16, 16, 1024, 128, (300, 1024)),   # OLMoE's decode: R = 1, D = 128
     (16, 16, 1024, 128, (0, 513)),      # OLMoE, no key beside a ragged tile
     (16, 16, 1024, 128, 544),           # OLMoE, one length passed by value
+    (64, 8, 1024, 128, (300, 513)),     # the VLM's self-attention: R = 8, D = 128
+    (64, 8, 576, 128, 576),             # its cross-attention: every frontend key valid
 ])
 def test_decode_matches_plain(dev, dtype, H, G, T, D, kv):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -403,3 +428,57 @@ def test_reduced_olmoe_on_the_card_matches_cpu(dev):
         _close(gl, cl, torch.float32)
     assert (flash_attention.launches - before[0],
             decode_attention.launches - before[1]) == (cfg.n_layers, 4 * cfg.n_layers)
+
+
+def test_reduced_vlm_on_the_card_matches_cpu(dev):
+    """The reduced llama-3.2-vision with a frontend: prefill (K3, 2 of the 10
+    launches without the causal mask) and 4 greedy decode steps (K2, the
+    cross layers over every frontend key) on the card against the plain
+    versions on the CPU, same fp32 weights and frontend."""
+    cfg = get_config("llama-3.2-vision-90b").reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_params = tree_map(lambda t: t.to(dev), cpu_params)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40))).long()
+    fe = torch.from_numpy(rng.standard_normal((2, 100, cfg.d_model)).astype(np.float32))
+    before = (flash_attention.launches, decode_attention.launches)
+    cl, cc, cn = prefill(cpu_params, toks, cfg, max_len=48, frontend=fe)
+    gl, gc, gn = prefill(gpu_params, toks.to(dev), cfg, max_len=48, frontend=fe.to(dev))
+    _close(gl, cl, torch.float32)
+    for _ in range(4):
+        tok = torch.argmax(cl, -1)
+        assert torch.equal(torch.argmax(gl, -1).cpu(), tok)
+        cl, cc = decode_step(cpu_params, tok, cc, cn, cfg, frontend=fe)
+        gl, gc = decode_step(gpu_params, tok.to(dev), gc, gn, cfg, frontend=fe.to(dev))
+        cn += 1
+        gn += 1
+        _close(gl, cl, torch.float32)
+    assert (flash_attention.launches - before[0],
+            decode_attention.launches - before[1]) == (cfg.n_layers, 4 * cfg.n_layers)
+
+
+def test_reduced_musicgen_on_the_card_matches_cpu(dev):
+    """The reduced musicgen through inputs_embeds: prefill from frame
+    embeddings and 4 decode steps, 2 from greedy tokens and 2 from (B, 1, d)
+    embeddings, on the card against the CPU, same fp32 weights."""
+    cfg = get_config("musicgen-large").reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_params = tree_map(lambda t: t.to(dev), cpu_params)
+    rng = np.random.default_rng(0)
+    emb = torch.from_numpy(rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32))
+    cl, cc, cn = prefill(cpu_params, None, cfg, max_len=48, inputs_embeds=emb)
+    gl, gc, gn = prefill(gpu_params, None, cfg, max_len=48, inputs_embeds=emb.to(dev))
+    _close(gl, cl, torch.float32)
+    for step in range(4):
+        tok = torch.argmax(cl, -1)
+        assert torch.equal(torch.argmax(gl, -1).cpu(), tok)
+        if step < 2:
+            cl, cc = decode_step(cpu_params, tok, cc, cn, cfg)
+            gl, gc = decode_step(gpu_params, tok.to(dev), gc, gn, cfg)
+        else:
+            e = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype(np.float32))
+            cl, cc = decode_step(cpu_params, None, cc, cn, cfg, inputs_embeds=e)
+            gl, gc = decode_step(gpu_params, None, gc, gn, cfg, inputs_embeds=e.to(dev))
+        cn += 1
+        gn += 1
+        _close(gl, cl, torch.float32)

@@ -15,14 +15,19 @@ import jax.numpy as jnp
 
 import repro.models as jm
 from repro.configs import get_config as jax_config
-from repro_torch.configs import get_config
+from repro.configs import ARCHS as JAX_ARCHS, PAPER_MODELS as JAX_PAPER_MODELS
+from repro.models.init import abstract_params as jax_abstract_params
+from repro.models.init import param_bytes as jax_param_bytes
+from repro_torch.configs import ARCHS, PAPER_MODELS, get_config
 from repro_torch.models import (
+    abstract_params,
     decode_step,
     forward,
     init_params,
     param_bytes,
     params_from_jax,
     prefill,
+    tree_bytes,
 )
 from repro_torch.tree import tree_leaves
 
@@ -55,12 +60,13 @@ def test_params_from_jax_round_trip_is_exact():
     for a, b in zip(jl, tl):
         assert b.dtype == torch.bfloat16 and tuple(b.shape) == a.shape
         assert np.array_equal(a.view(np.uint16), b.view(torch.int16).numpy().view(np.uint16))
-    assert param_bytes(tp) == sum(a.nbytes for a in jl)
+    assert tree_bytes(tp) == sum(a.nbytes for a in jl)
 
 
 @pytest.mark.parametrize("name", ["tinyllama-1.1b", "qwen2-72b", "gemma-7b",
                                   "mamba2-370m", "olmoe-1b-7b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b",
+                                  "llama-3.2-vision-90b", "musicgen-large"])
 def test_init_params_matches_jax_layout(name):
     """Leaf names, shapes and dtypes in the JAX tree's order, and the JAX
     scales: d^-0.5 for a dense or SSM input projection and the router, and
@@ -173,13 +179,59 @@ def test_windowed_prefill_matches_jax():
                                rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "olmoe-1b-7b",
-                                  "llama-3.2-vision-90b"])
+@pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "olmoe-1b-7b"])
 def test_unported_families_raise(name):
-    """Cross-attention (the VLM) is not ported; the MoE models are, but not
-    their expert-parallel form (moe_ep=True)."""
+    """The MoE models are ported, but not their expert-parallel form
+    (moe_ep=True)."""
     cfg = get_config(name).reduced()
     if cfg.uses_moe:
         cfg = dataclasses.replace(cfg, moe_ep=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         init_params(cfg, torch.Generator().manual_seed(0), CPU)
+
+
+CATALOG = sorted({**ARCHS, **PAPER_MODELS})
+
+
+def _jax_full(name):
+    return {**JAX_ARCHS, **JAX_PAPER_MODELS}[name]
+
+
+@pytest.mark.parametrize("name", CATALOG)
+def test_abstract_params_matches_jax(name):
+    """At full size, leaf for leaf in the JAX tree's order: the same shapes
+    and dtypes, every leaf on the meta device (nothing allocated)."""
+    want = [(l.shape, np.dtype(l.dtype).name)
+            for l in jax.tree.leaves(jax_abstract_params(_jax_full(name)))]
+    leaves = tree_leaves(abstract_params(get_config(name)))
+    assert all(t.device.type == "meta" for t in leaves)
+    assert [(tuple(t.shape), str(t.dtype)[6:]) for t in leaves] == want
+
+
+@pytest.mark.parametrize("name", CATALOG)
+def test_param_bytes_matches_jax(name):
+    """``param_bytes(cfg)`` is the JAX tree's bytes. JAX's own
+    ``param_bytes`` takes each leaf's element count as an int32 product,
+    which wraps for a leaf of 2^31 elements or more (OLMoE's stacked
+    experts, the stacked MLP leaves of the larger models): where no leaf is
+    that large the two agree, and everywhere the port gives the exact sum."""
+    jcfg = _jax_full(name)
+    leaves = jax.tree.leaves(jax_abstract_params(jcfg))
+    exact = sum(int(np.prod(l.shape, dtype=np.int64)) * l.dtype.itemsize
+                for l in leaves)
+    assert param_bytes(get_config(name)) == exact
+    if all(np.prod(l.shape, dtype=np.int64) < 2 ** 31 for l in leaves):
+        assert param_bytes(get_config(name)) == jax_param_bytes(jcfg)
+
+
+def test_param_bytes_of_the_served_cuts():
+    """The leaves' counts, not ``param_count()``, which counts q/k/v twice
+    in a cross-attention layer and leaves out the norms."""
+    vlm = get_config("llama-3.2-vision-90b")
+    assert param_bytes(vlm) == 175_333_588_992
+    cut = dataclasses.replace(vlm, n_layers=10)           # 2 periods
+    assert param_bytes(cut) == 21_315_796_992
+    assert sum(t.numel() for t in tree_leaves(abstract_params(cut))) == 10_657_898_496
+    assert cut.param_count() - 10_657_898_496 == 2 * vlm.d_model * vlm.hd * (
+        vlm.n_heads + 2 * vlm.n_kv_heads) - 10 * 2 * vlm.d_model
+    assert param_bytes(get_config("musicgen-large")) == 6_459_625_472

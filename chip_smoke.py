@@ -17,8 +17,10 @@ Phases, one result line each:
              heads on 8 KV heads of 128 ("vlm" in their rows): K3 without
              the causal mask over 576 frontend keys (and a ragged 100), K2
              over all 576;
-             K3 also through the model-layout wrapper and at a 2048-token
-             prompt (its share of the operations bound); K3 and K4 with the
+             K3 also through the model-layout wrapper, at a 2048-token
+             prompt (its share of the operations bound) and at the train
+             phase's 8 x 512 tokens with its backward (PyTorch ops) held
+             to autograd through the plain version; K3 and K4 with the
              HGMMA count `cuobjdump -sass` finds in their bf16 kernels; K4 on
              its default route (the CUDA cores, which the model takes) and,
              for every bf16 case they take, on the tensor cores; at the
@@ -55,10 +57,21 @@ Phases, one result line each:
              trip and the 4 requests from tokens, then a prefill from
              (1, 512, 2048) frame embeddings (inputs_embeds) and 8 decode
              steps, held as serve-vlm holds its first prompt
+  train      the training path: TinyLlama-1.1B at full width and depth in
+             bf16 through repro_torch.training.train on 8 x 512 synthetic
+             tokens, remat on: 4 AdamW steps, a checkpoint of params and
+             AdamW state (~11 GB) saved and restored through the multipath
+             engine (K1 on every leaf of 12 MB or more) bit-exact, then 4
+             steps with 2 microbatches from the restored state. K3 runs
+             forward and under remat; its gradient is FlashAttentionFn's
+             backward. Step 1's gradient, computed apart, probes every K3
+             forward and backward against the plain version on the same
+             inputs, and its loss against the plain path's
 
 Launch counts are zeroed just before each serve phase's main path and read
 just after it (musicgen's inputs_embeds run is a path of its own,
-serve-audio:inputs_embeds). The script ends with the kernels JSON line
+serve-audio:inputs_embeds; the train phase's steps and checkpoint are path
+train). The script ends with the kernels JSON line
 (launches summed over the paths, and per path), the card's name and power
 limit, and
 {"ok": true, "device": {...}}. It needs a CUDA card and the repository's
@@ -345,11 +358,73 @@ def _flash_case(dev, gen):
           f"sdpa_ms={long['library_ms']:.5f} bound_ms={long['bound_ms']:.5f} (operations) "
           f"share_of_bound={long['share_of_bound']:.3f} max_abs_err={err:.3e}", flush=True)
     row["long_prompt"] = long
+    row["train"] = _flash_train(dev, torch.Generator(device=dev).manual_seed(2))
     row["sass"] = build.sass_counts("flash_fwd_wgmma", ("HGMMA", "HMMA"))
     print(f"  flash_attention bf16 kernel SASS: {row['sass']}", flush=True)
     check(row["sass"] is None or all(c["HGMMA"] > 0 for c in row["sass"].values()),
           f"K3's bf16 kernel has no HGMMA instruction: {row['sass']}")
     return row
+
+
+def _flash_train(dev, gen, B=8, H=32, G=4, D=64, S=512):
+    """K3 at the train phase's shape (TinyLlama's heads, 8 sequences of 512,
+    bf16, causal) through FlashAttentionFn: the forward held to the plain
+    version and timed as at the served shapes; the backward
+    (``flash_attention_bwd``, PyTorch ops, not a kernel) held to autograd
+    through the plain version on the same inputs and dO, relative to each
+    gradient's largest magnitude, and timed beside that autograd backward,
+    SDPA's backward and its bound. Backward times are CUDA events around 10
+    eager calls (each call is milliseconds of device work)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention_bwd, flash_attention_op, \
+        flash_attention_op_ref
+
+    q, do = (torch.randn(B, S, H, D, device=dev, generator=gen).to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, G, D, device=dev, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    forward = _flash_served(dev, gen, B, H, G, D, S)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention_op(*leaves)
+    got = torch.autograd.grad(out, leaves, do)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_op_ref(*plain)
+    want = torch.autograd.grad(ref, plain, do, retain_graph=True)
+    fwd_err = max_err(out, ref)
+    bwd_err = max(max_err(a, b) / b.float().abs().max().item() for a, b in zip(got, want))
+    check(fwd_err <= TOL[torch.bfloat16] and bwd_err <= TOL[torch.bfloat16]
+          and all(torch.isfinite(g).all().item() for g in got),
+          f"K3 at the train shape: forward {fwd_err:.3e}, backward {bwd_err:.3e} of max")
+    o = out.detach()
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+    dos = do.transpose(1, 2)
+
+    def eager_ms(fn, reps=10):
+        fn()
+        return _event_ms(lambda: [fn() for _ in range(reps)], reps)
+
+    # recompute s, dV, dP, dQ, dK: five products, half the (S, S) entries
+    flops = 5 * 2 * B * H * S * (S + 1) // 2 * D
+    moved = nbytes(q, k, v, o, do, q, k, v)       # read q k v o dO, write dq dk dv
+    backward = {
+        "shape": f"q,dO ({B}, {S}, {H}, {D}) k,v ({B}, {S}, {G}, {D}) bf16 causal",
+        "max_abs_err_rel": bwd_err,
+        "ms": eager_ms(lambda: flash_attention_bwd(q, k, v, o, do)),
+        "plain_ms": eager_ms(lambda: torch.autograd.grad(ref, plain, do, retain_graph=True)),
+        "library_ms": eager_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dos,
+                                                           retain_graph=True)),
+        "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
+        else "bytes",
+        "flops": flops,
+    }
+    print(f"  flash_attention train {forward['shape']}: forward ms={forward['ms']:.5f} "
+          f"sdpa_ms={forward['library_ms']:.5f} max_abs_err={fwd_err:.3e}; backward "
+          f"(torch ops) ms={backward['ms']:.4f} plain_ms={backward['plain_ms']:.4f} "
+          f"sdpa_ms={backward['library_ms']:.4f} bound_ms={backward['bound_ms']:.5f} "
+          f"({backward['bound_by']}) rel_err={bwd_err:.3e}", flush=True)
+    return {**forward, "max_abs_err": fwd_err, "backward": backward}
 
 
 def _decode_served(dev, gen, B, H, G, D, T, L):
@@ -1473,6 +1548,253 @@ def phase_serve_audio(dev):
 
 
 # ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def _probing_k3_grad(forward_errs, backward_errs):
+    """K3 through FlashAttentionFn as the model calls it, each forward
+    held to the plain version on the same inputs (max |difference|) and
+    each backward to autograd through the plain version on the same
+    inputs and dO (max |difference| of dq, dk, dv, each relative to its
+    largest magnitude), appended to the two lists."""
+    from repro_torch.kernels import FlashAttentionFn, flash_attention_op_ref
+
+    kernel_forward, kernel_backward = FlashAttentionFn.forward, FlashAttentionFn.backward
+
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        out = kernel_forward(ctx, q, k, v, causal, window, q_offset)
+        ref = flash_attention_op_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+        forward_errs.append(max_err(out, ref))
+        ctx.probe_inputs = (q, k, v)     # saved_tensors unpack once under remat
+        return out
+
+    def backward(ctx, do):
+        grads = kernel_backward(ctx, do)
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in ctx.probe_inputs]
+            want = torch.autograd.grad(flash_attention_op_ref(*leaves, **ctx.opts),
+                                       leaves, do)
+        backward_errs.append(max(max_err(a, b) / b.float().abs().max().item()
+                                 for a, b in zip(grads[:3], want)))
+        return grads
+
+    with mock.patch.object(FlashAttentionFn, "forward", staticmethod(forward)), \
+            mock.patch.object(FlashAttentionFn, "backward", staticmethod(backward)):
+        yield
+
+
+@contextlib.contextmanager
+def _timing_engine(totals):
+    """The checkpoint's multipath_device_get / _put calls, each timed on the
+    host clock (a put until the card has the leaf, a get until the host
+    has it) with its bytes, summed into ``totals["get"]`` and
+    ``totals["put"]`` as [bytes, seconds]."""
+    import repro_torch.training.checkpoint as checkpoint
+
+    def timed_call(kind, fn):
+        def run(x, *args, **kw):
+            t0 = time.monotonic()
+            out = fn(x, *args, **kw)
+            torch.cuda.synchronize()
+            totals[kind][0] += out.numel() * out.element_size()
+            totals[kind][1] += time.monotonic() - t0
+            return out
+        return run
+
+    with mock.patch.object(checkpoint, "multipath_device_get",
+                           timed_call("get", checkpoint.multipath_device_get)), \
+            mock.patch.object(checkpoint, "multipath_device_put",
+                              timed_call("put", checkpoint.multipath_device_put)):
+        yield
+
+
+def _device_time(run, top=12):
+    """``run()`` once under torch.profiler (CPU and CUDA activities): its
+    host-clock ms to a synchronize, the summed device time of its kernels,
+    the device's idle share of the wall time, and the ``top`` kernels by
+    device time, with calls, grouped by name. "not measured" where the
+    trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.monotonic() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if not device_ms:
+        return {"wall_ms": wall_ms, "device_ms": "not measured"}
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
+            "idle_share": max(0.0, 1 - device_ms / wall_ms),
+            "top": [{"name": e.key[:90], "calls": e.count,
+                     "ms": e.self_device_time_total / 1e3} for e in kernels[:top]]}
+
+
+def phase_train(dev):
+    """The training path: TinyLlama-1.1B at full width and depth in bf16
+    (random weights from seed 0) through ``repro_torch.training.train`` on
+    ``SyntheticTokenStream`` batches of 8 x 512 tokens, remat on: 4 AdamW
+    steps with one microbatch, a checkpoint of params and AdamW state
+    saved through multipath_device_get and restored through
+    multipath_device_put (K1 on every leaf of at least 12 MB), bit-exact,
+    step and data step carried, then 4 more steps from the restored state
+    with 2 microbatches (the accumulation path). K3 runs forward and again
+    under remat in every layer; its gradient is FlashAttentionFn's backward.
+
+    Before the counted path, step 1's gradient (the same parameters and
+    first batch) is computed apart: every K3 forward and backward in it is
+    probed against the plain version on the same inputs (gated at 2e-2),
+    its loss is held within 1e-2 relative of the plain path's, every leaf's
+    gradient must be finite and non-zero, and the leaves' gradient errors
+    against the plain path are reported, not gated."""
+    import tempfile
+
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.core import MB, MMAConfig, make_functional_engine
+    from repro_torch.kernels import flash_attention_op_ref, launch_counts, \
+        reset_launch_counts
+    from repro_torch.models import init_params, param_bytes, tree_bytes
+    from repro_torch.training import AdamWConfig, DataConfig, SyntheticTokenStream, \
+        TrainConfig, make_train_step, restore_checkpoint, save_checkpoint, train
+    from repro_torch.training.train_loop import loss_and_grads
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("tinyllama-1.1b")             # full width and depth, bf16
+    check(cfg.dtype == torch.bfloat16, "tinyllama-1.1b must default to bf16")
+    stream = SyntheticTokenStream(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8))
+    tokens = stream.cfg.global_batch * stream.cfg.seq_len
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    check(tree_bytes(params) == param_bytes(cfg),
+          f"{tree_bytes(params)} bytes of parameters, {param_bytes(cfg)} in the leaves")
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in stream.next_batch().items()}
+    stream.seek(0)
+
+    # step 1's gradient, probed, and the plain path's (not counted)
+    fwd_errs, bwd_errs = [], []
+    with _probing_k3_grad(fwd_errs, bwd_errs):
+        loss, _, grads = loss_and_grads(params, batch, cfg)
+    with mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref):
+        plain_loss, _, plain_grads = loss_and_grads(params, batch, cfg)
+    grads, plain_grads = tree_leaves(grads), tree_leaves(plain_grads)
+    loss_rel = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+    names = [f"leaf {i} {tuple(g.shape)}" for i, g in enumerate(grads)]
+    bad = [n for n, g in zip(names, grads)
+           if not (torch.isfinite(g).all().item() and g.abs().max().item() > 0)]
+    grad_rel = [max_err(g, p) / p.float().abs().max().item()
+                for g, p in zip(grads, plain_grads)]
+    probes = {"k3_forward": {"calls": len(fwd_errs), "max_abs_err": max(fwd_errs)},
+              "k3_backward": {"calls": len(bwd_errs), "max_rel_err": max(bwd_errs)}}
+    print(f"  train step 1: loss {loss.item():.5f}, plain path {plain_loss.item():.5f} "
+          f"({loss_rel:.3e} relative); probes {probes}; end-to-end gradient errors "
+          f"against the plain path, worst leaf {max(grad_rel):.3e}", flush=True)
+    check(not bad, f"gradients not finite or all zero at step 1: {bad}")
+    check(len(fwd_errs) == 2 * cfg.n_layers and len(bwd_errs) == cfg.n_layers,
+          f"{len(fwd_errs)} K3 forwards and {len(bwd_errs)} backwards in step 1: want "
+          f"{2 * cfg.n_layers} (forward + remat) and {cfg.n_layers}")
+    check(max(fwd_errs) <= TOL[torch.bfloat16] and max(bwd_errs) <= TOL[torch.bfloat16],
+          f"K3 differs from its plain version on the same inputs: {probes}")
+    check(loss_rel <= 1e-2, f"step 1 loss differs from the plain path's: {loss_rel:.3e}")
+    del grads, plain_grads
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    engine = make_functional_engine(config=MMAConfig(chunk_bytes=1 << 20,
+                                                     fallback_bytes=12 * MB))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_alloc = torch.cuda.memory_allocated(dev)   # earlier phases' leftovers too
+    reset_launch_counts()                        # --- the main path starts here
+    t_main = time.monotonic()
+    params, state, first = train(
+        cfg, params, iter(stream),
+        TrainConfig(steps=4, microbatches=1, log_every=1, remat=True, opt=opt),
+        device=dev)
+    engine_time = {"get": [0, 0.0], "put": [0, 0.0]}   # [bytes, seconds]
+    with tempfile.TemporaryDirectory() as tmp, _timing_engine(engine_time):
+        path = str(Path(tmp) / "tinyllama.npz")
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        file_bytes = save_checkpoint(path, params, state, step=int(state.step),
+                                     data_step=stream.step, engine=engine)
+        save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        params2, state2, step, data_step = restore_checkpoint(path, params, state,
+                                                              engine=engine)
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        k1_restore = launch_counts()["relay_assemble"]
+    moved = sum(t.numel() * t.element_size() >= engine.config.fallback_bytes
+                for t in tree_leaves((params, state.mu, state.nu)))
+    exact = all(a.dtype == b.dtype and torch.equal(a.view(-1).view(torch.uint8),
+                                                   b.view(-1).view(torch.uint8))
+                for a, b in zip(tree_leaves((params, state)), tree_leaves((params2, state2))))
+    check(exact, "the checkpoint round trip is not bit-exact")
+    check((step, data_step) == (4, 4), f"step {step} and data step {data_step} carried, want 4")
+    check(k1_restore == moved, f"K1 ran {k1_restore} times on restore: want one per "
+          f"leaf of at least 12 MB ({moved})")
+    ckpt_bytes = sum(t.numel() * t.element_size() for t in tree_leaves((params, state)))
+    del params, state
+    stream.seek(data_step)
+    params, state, second = train(
+        cfg, params2, iter(stream),
+        TrainConfig(steps=4, microbatches=2, log_every=1, remat=True, opt=opt),
+        device=dev, opt_state=state2)
+    del params2, state2
+    torch.cuda.synchronize()
+    counts = launch_counts()                     # --- the main path ends here
+    main_s = time.monotonic() - t_main
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    def durations_ms(history):                   # each train call logs every step
+        wall = [0.0] + [h["wall_s"] for h in history]
+        return [1e3 * (b - a) for a, b in zip(wall, wall[1:])]
+
+    losses = [h["loss"] for h in first + second]
+    step_ms = durations_ms(first) + durations_ms(second)
+    check(len(losses) == 8 and all(np.isfinite(losses)), f"losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(int(state.step) == 8, f"AdamW took {int(state.step)} steps, want 8")
+    k3_want = 4 * 2 * cfg.n_layers + 4 * 2 * 2 * cfg.n_layers
+    check(counts["flash_attention"] == k3_want and counts["relay_assemble"] == moved
+          and counts["decode_attention"] == 0 and counts["ssd_chunk"] == 0,
+          f"launches {counts}: want K3 {k3_want} (forward + remat per layer and "
+          f"microbatch), K1 {moved}, K2 and K4 0")
+    # steps after each call's first, by microbatch count
+    steady = {mb: step_ms[i + 1:i + 4] for mb, i in ((1, 0), (2, 4))}
+    # one more step with one microbatch, traced (after the counted path)
+    step_fn = make_train_step(cfg, TrainConfig(microbatches=1, remat=True, opt=opt))
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in stream.next_batch().items()}
+    trace = _device_time(lambda: step_fn(params, state, batch))
+    fields = dict(
+        model=cfg.name, params=sum(t.numel() for t in tree_leaves(params)),
+        weight_bytes=param_bytes(cfg), batch=[8, 512], lr=opt.lr,
+        warmup_steps=opt.warmup_steps, microbatches=[1] * 4 + [2] * 4, losses=losses,
+        step_ms=step_ms, tokens_per_s={f"microbatches_{mb}": tokens / (np.mean(ms) / 1e3)
+                                       for mb, ms in steady.items()},
+        grad_norms=[h["grad_norm"] for h in first + second],
+        step1_loss=loss.item(), step1_loss_plain=plain_loss.item(),
+        step1_loss_rel_err=loss_rel, step1_grad_rel_err_worst_leaf=max(grad_rel),
+        step1_grad_rel_err=grad_rel, **probes,
+        checkpoint=dict(bytes=ckpt_bytes, file_bytes=file_bytes, leaves_through_engine=moved,
+                        save_s=save_s, restore_s=restore_s,
+                        save_GBps=ckpt_bytes / 1e9 / save_s,
+                        restore_GBps=ckpt_bytes / 1e9 / restore_s,
+                        engine_get_GBps=engine_time["get"][0] / 1e9 / engine_time["get"][1],
+                        engine_put_GBps=engine_time["put"][0] / 1e9 / engine_time["put"][1],
+                        engine_bytes=engine_time["put"][0], bit_exact=exact,
+                        step=step, data_step=data_step),
+        main_path_s=main_s, peak_mem_GB=peak / 1e9, allocated_at_start_GB=start_alloc / 1e9,
+        traced_step=trace, launches=counts)
+    report("train", **fields)
+    return counts
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1506,6 +1828,7 @@ def main(argv=None) -> int:
             ("serve-vlm", lambda: counts.update({"serve-vlm": phase_serve_vlm(dev)})),
             ("serve-audio", lambda: counts.update(zip(
                 ("serve-audio", "serve-audio:inputs_embeds"), phase_serve_audio(dev)))),
+            ("train", lambda: counts.update(train=phase_train(dev))),
         ):
             t0 = time.monotonic()
             run()

@@ -4,7 +4,9 @@ its plain PyTorch version (``ref.py``) beside the wrapper that launches it.
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 for a CPU tensor. Each keeps a plain integer ``launches`` count, raised by
 one where the kernel is launched and nowhere else; K4 also counts its
-launches by route (``ssd_chunk.route_launches``).
+launches by route (``ssd_chunk.route_launches``). K3 carries a gradient
+through ``FlashAttentionFn`` (its backward is PyTorch ops, recomputing the
+probabilities); a launch of the others that autograd would record raises.
 
   K1 ``relay_assemble``   <- repro/kernels/relay_copy/relay_copy.py
   K2 ``decode_attention`` <- repro/kernels/decode_attention/decode_attention.py
@@ -20,7 +22,9 @@ from .decode_attention import (
     decode_attention_ref,
 )
 from .flash_attention import (
+    FlashAttentionFn,
     flash_attention,
+    flash_attention_bwd,
     flash_attention_op,
     flash_attention_op_ref,
     flash_attention_ref,

@@ -140,6 +140,19 @@ def check(rc: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {rc}: {msg}")
 
 
+def refuse_grad(kernel: str, *tensors, why: str) -> None:
+    """Raise where autograd would record a launch. A kernel writes into a
+    buffer the wrapper allocated, so autograd would lose the gradient of
+    its inputs without a word. K3 takes gradients through
+    ``FlashAttentionFn``, whose forward runs with grad mode off; the other
+    kernels have no gradient (``why`` says what waits for one)."""
+    import torch
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: no gradient on the card; {why} (ROADMAP.md, queue 2)")
+
+
 def stream_handle(t) -> int:
     """PyTorch's current stream on ``t``'s device, as a raw handle."""
     import torch

@@ -73,6 +73,8 @@ def launch(q, k, v, kv_len: Union[int, torch.Tensor], out, dims: Sequence[int],
            strides: Sequence[int]) -> None:
     """Launch K2. dims = (B, H, G, T, D); strides in elements:
     q (b, h), k (b, t, g), v (b, t, g), out (b, h)."""
+    build.refuse_grad("decode_attention", q, k, v,
+                      why="K2 serves decode only, which takes no gradient")
     B, H, G, T, D = dims
     if H // G > MAX_GROUP:
         raise ValueError(f"decode_attention: H/G = {H // G} > {MAX_GROUP}")

@@ -59,6 +59,8 @@ def launch(q, k, v, out, dims: Sequence[int], strides: Sequence[int], *,
            causal: bool, window: int, q_offset: int) -> None:
     """Launch K3. dims = (B, H, G, Sq, T, D); strides in elements:
     q (b, s, h), k (b, t, g), v (b, t, g), out (b, s, h)."""
+    build.refuse_grad("flash_attention", q, k, v,
+                      why="call flash_attention_op, whose FlashAttentionFn carries it")
     B, H, G, Sq, T, D = dims
     if out.numel() == 0:
         return

@@ -86,6 +86,8 @@ def launch(x, a, B, C, y, states, decay, dims: Sequence[int],
     L, Q, P, N); strides in elements: x (b, t, h), a (b, t, h), B (b, t, g),
     C (b, t, g), y (b, t, h). ``a`` is fp32; ``states`` (batch, H, nc, P, N)
     and ``decay`` (batch, H, nc, Q) are contiguous fp32."""
+    build.refuse_grad("ssd_chunk", x, a, B, C,
+                      why="SSM training on the card waits for a backward of K4")
     batch, H, G, L, Q, P, N = dims
     if G < 1 or H % G:
         raise ValueError(f"ssd_chunk: need H % G == 0, got H={H} G={G}")

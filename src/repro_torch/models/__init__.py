@@ -4,8 +4,9 @@ kernel, recurrent decode), the MoE channel (top-k routing with capacity
 drops, experts as products over the expert axis), cross-attention to a
 frontend's embeddings (K3 without the causal mask, K2 at decode) and the
 ``inputs_embeds`` entry, and periods that interleave them (the hybrid
-plan, MoE cadences, the VLM's cross-attention cadence). Expert
-parallelism is not ported yet."""
+plan, MoE cadences, the VLM's cross-attention cadence); the training loss
+(``loss_fn``) with remat per period. Expert parallelism is not ported
+yet."""
 from .attention import (
     cross_attention,
     decode_self_attention,
@@ -24,6 +25,7 @@ from .init import (
 from .layers import (
     BATCH,
     MODEL,
+    cross_entropy_loss,
     embed,
     mlp_forward,
     rms_norm,
@@ -31,7 +33,7 @@ from .layers import (
     shard,
     unembed,
 )
-from .model import decode_step, forward, prefill
+from .model import decode_step, forward, loss_fn, prefill
 from .moe import load_balance_loss, moe_ffn, router
 from .ssm import (
     causal_conv,

@@ -6,7 +6,7 @@ model code reads like its counterpart.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -73,3 +73,17 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
         return x @ w.t()
     return x @ w
 
+
+def cross_entropy_loss(
+    logits: torch.Tensor, labels: torch.Tensor, mask: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Mean next-token negative log-likelihood in fp32 (logsumexp minus
+    the gold logit), over the positions where ``mask`` is set when given."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

@@ -1,13 +1,14 @@
-"""LM wrapper: embeddings -> blocks -> head; the forward / prefill /
-decode entry points the serving engine uses. Cache lengths are Python
-ints, so decode steps never wait on the card to learn them."""
+"""LM wrapper: embeddings -> blocks -> head; the training loss and the
+forward / prefill / decode entry points the trainer and the serving engine
+use. Cache lengths are Python ints, so decode steps never wait on the card
+to learn them."""
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
 import torch
 
-from .layers import embed, rms_norm, unembed
+from .layers import cross_entropy_loss, embed, rms_norm, unembed
 from .transformer import init_caches, run_blocks
 
 
@@ -22,9 +23,12 @@ def forward(
     caches: Optional[List] = None,
     cache_len: Optional[int] = None,
     window: int = 0,
+    remat: bool = False,
 ):
     """Returns (logits, new_caches, aux_loss); aux_loss is the MoE layers'
-    summed load-balance loss (fp32, 0 without MoE layers).
+    summed load-balance loss (fp32, 0 without MoE layers). ``remat``
+    recomputes each period's activations in the backward pass in place of
+    keeping them.
 
     ``inputs_embeds`` (B, S, d) replaces the token embedding (an audio
     frontend's precomputed frame embeddings), cast to ``cfg.dtype``;
@@ -37,11 +41,33 @@ def forward(
         x = embed(params, tokens)
     x, new_caches, aux = run_blocks(
         params, x, cfg, mode=mode, frontend=frontend, caches=caches,
-        cache_len=cache_len, window=window,
+        cache_len=cache_len, window=window, remat=remat,
     )
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = unembed(params, x)
     return logits, new_caches, aux
+
+
+# ---------------------------------------------------------------------------
+def loss_fn(
+    params: Dict,
+    batch: Dict,
+    cfg,
+    *,
+    aux_weight: float = 0.01,
+    remat: bool = True,
+):
+    """Cross-entropy of ``batch["labels"]`` (under ``batch["mask"]`` when
+    given) plus ``aux_weight`` times the MoE load-balance loss. Returns
+    (loss, {"ce", "aux"}), as the JAX package's ``loss_fn``."""
+    logits, _, aux = forward(
+        params, batch["tokens"], cfg, mode="train",
+        frontend=batch.get("frontend"),
+        inputs_embeds=batch.get("inputs_embeds"),
+        remat=remat,
+    )
+    ce = cross_entropy_loss(logits, batch["labels"], batch.get("mask"))
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(

@@ -9,12 +9,19 @@ plan, MoE cadences, the VLM's cross-attention cadence); each MoE layer's
 load-balance loss is summed into the aux that ``run_blocks`` returns. A
 cross-attention layer reads the ``frontend`` embeddings and keeps no
 cache. Expert parallelism (``cfg.moe_ep``) raises ``NotImplementedError``.
+
+``remat`` wraps each period in ``torch.utils.checkpoint`` (non-reentrant):
+its activations are recomputed in the backward pass, as JAX's
+``jax.checkpoint`` around the scan body. ``cfg.remat_policy`` chooses what
+JAX keeps across that recompute; it changes memory and time, not values,
+and the port recomputes the whole period whatever it says.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (
     cross_attention,
@@ -140,18 +147,24 @@ def run_blocks(
     caches: Optional[List] = None,
     cache_len: Optional[int] = None,
     window: int = 0,
+    remat: bool = False,
 ):
     """Returns (hidden, caches, aux_loss). Period i uses leaf[i] of every
     stacked parameter and cache; the caches are the same objects, updated.
     aux_loss is the sum of the MoE layers' load-balance losses (fp32; 0
     without MoE layers). ``frontend`` (B, F, d) feeds the cross-attention
-    layers; a model that has one raises ``ValueError`` without it."""
+    layers; a model that has one raises ``ValueError`` without it.
+    ``remat`` recomputes each period in the backward pass (when autograd
+    records)."""
     if frontend is None and any(m == "cross_attn" for m, _ in cfg.layer_plan()):
         raise ValueError(
             f"{cfg.name} has cross-attention layers: pass frontend=(B, F, d_model) "
             f"embeddings"
         )
-    blocks = params["blocks"]           # leaves: (n_periods, ...)
+    # leaves: (n_periods, ...), unbound once: the backward of unbind stacks
+    # the periods' gradients in one pass, where indexing each period would
+    # add a zero-filled gradient of the whole stacked leaf per period
+    blocks = [{k: a.unbind(0) for k, a in p.items()} for p in params["blocks"]]
     aux = None
     for i in range(cfg.n_periods):
         params_period = [{k: a[i] for k, a in p.items()} for p in blocks]
@@ -159,10 +172,13 @@ def run_blocks(
             [{k: a[i] for k, a in c.items()} for c in caches]
             if caches is not None else None
         )
-        x, _, aux_i = super_block(
-            params_period, x, cfg, mode=mode, frontend=frontend,
-            caches=caches_period, cache_len=cache_len, window=window,
-        )
+        kw = dict(mode=mode, frontend=frontend, caches=caches_period,
+                  cache_len=cache_len, window=window)
+        if remat and torch.is_grad_enabled():
+            x, _, aux_i = checkpoint(super_block, params_period, x, cfg,
+                                     use_reentrant=False, **kw)
+        else:
+            x, _, aux_i = super_block(params_period, x, cfg, **kw)
         if aux_i is not None:
             aux = aux_i if aux is None else aux + aux_i
     if aux is None:

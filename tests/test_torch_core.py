@@ -31,7 +31,10 @@ VERBATIM = [
                               "attribution")),
     *(f"kvstore/{m}.py" for m in ("__init__", "hashing", "radix", "tiers",
                                   "store")),
-    "serving/kv_cache.py", "serving/scheduler.py",
+    *(f"serving/{m}.py" for m in ("kv_cache", "scheduler", "report",
+                                  "batching", "orchestrator", "disagg")),
+    "workloads/__init__.py", "workloads/generator.py",
+    "training/data.py",
     *(f"configs/{p.name}" for p in sorted((SRC / "repro/configs").glob("*.py"))
       if p.name != "base.py"),
 ]

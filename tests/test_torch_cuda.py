@@ -1,6 +1,8 @@
 """The port on an sm_90 card: the CUDA kernels against their plain
-versions, the data plane bit-exact through real CUDA copies, and a reduced
-model on the card against the same model on the CPU.
+versions, the data plane bit-exact through real CUDA copies, a reduced
+model on the card against the same model on the CPU, and gradients: K3's
+through FlashAttentionFn and a 2-layer model's against the plain path's,
+and the kernels without a gradient refusing one.
 
 Every test here needs the card (marker ``cuda``) and skips elsewhere; the
 file imports neither JAX nor the JAX package, so it runs on a machine
@@ -30,6 +32,7 @@ from repro_torch.kernels import (
     decode_attention_ref,
     flash_attention,
     flash_attention_op,
+    flash_attention_op_ref,
     flash_attention_ref,
     relay_assemble,
     relay_assemble_ref,
@@ -38,9 +41,16 @@ from repro_torch.kernels import (
     ssd_chunk_op_ref,
     ssd_chunk_ref,
 )
-from repro_torch.models import decode_step, init_params, moe_ffn, prefill, router
+from repro_torch.models import (
+    decode_step,
+    init_params,
+    loss_fn,
+    moe_ffn,
+    prefill,
+    router,
+)
 from repro_torch.models.moe import capacity, slot_positions
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: dict(rtol=2e-2, atol=2e-2),
@@ -482,3 +492,100 @@ def test_reduced_musicgen_on_the_card_matches_cpu(dev):
         cn += 1
         gn += 1
         _close(gl, cl, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Gradients on the card
+# ---------------------------------------------------------------------------
+def _rel_to_scale(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,G,D,causal,window,q_offset", [
+    (2, 512, 512, 32, 4, 64, True, 0, 0),      # TinyLlama's heads at a train shape
+    (1, 200, 200, 8, 2, 128, True, 64, 0),     # window, ragged tiles, D = 128
+    (1, 64, 576, 8, 2, 64, True, 0, 512),      # a later chunk of a prompt
+    (1, 100, 576, 16, 2, 64, False, 0, 0),     # cross-attention
+])
+def test_flash_attention_backward_on_the_card_matches_plain(
+        dev, dtype, B, S, T, H, G, D, causal, window, q_offset):
+    """K3 through FlashAttentionFn: its output and (dq, dk, dv) against
+    autograd through the plain version on the same inputs and dO, relative
+    to each gradient's largest magnitude."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn(B, S, H, D, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(B, T, G, D, device=dev, generator=g).to(dtype) for _ in range(2))
+    do = torch.randn(B, S, H, D, device=dev, generator=g).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention_op(*leaves, **kw)
+    assert flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, leaves, do)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_op_ref(*plain, **kw)
+    want = torch.autograd.grad(ref, plain, do)
+    _close(out.detach(), ref.detach(), dtype)
+    tol = TOL[dtype]["atol"]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert _rel_to_scale(a, b) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_grads_on_the_card_match_plain_path(dev, dtype):
+    """loss.backward() of a 2-layer dense model on the card (K3 forward,
+    its recompute under remat, FlashAttentionFn's backward) gives every
+    parameter leaf a finite gradient within 2e-2 (bf16) / 1e-4 (fp32) of
+    the plain path's on the card, relative to the leaf's largest
+    magnitude."""
+    from unittest import mock
+
+    import repro_torch.models.attention as attention
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 129))).long().to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def grads():
+        live = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+        loss, _ = loss_fn(live, batch, cfg)
+        loss.backward()
+        return loss.detach(), [t.grad for t in tree_leaves(live)]
+
+    before = flash_attention.launches
+    loss, got = grads()
+    assert flash_attention.launches - before == 2 * cfg.n_layers   # forward + remat
+    with mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref):
+        plain_loss, want = grads()
+    assert torch.isfinite(loss)
+    for a, b in zip(got, want):
+        assert a is not None and torch.isfinite(a).all() and a.abs().max() > 0
+        assert _rel_to_scale(a, b) <= TOL[dtype]["atol"]
+
+
+def test_kernels_without_a_gradient_refuse_one_on_the_card(dev):
+    """K2 and K4 (and K3 called outside FlashAttentionFn) raise where
+    autograd would record their launch, and run under no_grad."""
+    q = torch.randn(1, 1, 8, 64, device=dev, requires_grad=True)
+    kv = torch.randn(1, 32, 2, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        decode_attention_op(q, kv, kv, 16)
+    x = torch.randn(1, 64, 4, 32, device=dev, requires_grad=True)
+    a = -torch.rand(1, 64, 4, device=dev)
+    Bm = torch.randn(1, 64, 1, 16, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ssd_chunk_op(x, a, Bm, Bm, 32)
+    qh = torch.randn(1, 8, 64, 64, device=dev, requires_grad=True)
+    kh = torch.randn(1, 2, 64, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_attention(qh, kh, kh)
+    with torch.no_grad():
+        decode_attention_op(q, kv, kv, 16)
+        ssd_chunk_op(x, a, Bm, Bm, 32)
+        flash_attention(qh, kh, kh)
+

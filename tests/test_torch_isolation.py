@@ -30,6 +30,7 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['repro'] = None\n"
         "import repro_torch, repro_torch.core, repro_torch.models\n"
         "import repro_torch.serving, repro_torch.kernels, repro_torch.configs\n"
+        "import repro_torch.training, repro_torch.workloads\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ISOLATED')\n"

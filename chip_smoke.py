@@ -44,6 +44,16 @@ Phases, one result line each:
              own sensitivity puts past 2e-2 even on the same routes), the
              free-running gap, the routes that differ and the assignments
              dropped over capacity are reported
+  dist       the distribution layer on a one-rank NCCL mesh (data, model) =
+             (1, 1): OLMoE-1B-7B with moe_ep=True at full width and depth
+             lands from pinned host memory in the staging layout (K1 on
+             every leaf) and is resharded into the serving layout
+             (bit-exact); under the mesh a 512-token prefill and 8 greedy
+             decode steps (every K3/K2 call held to its plain version; the
+             logits beside the same entry points without a mesh); the
+             caches through the KV fetch (bit-exact); then one AdamW step
+             of TinyLlama-1.1B on DTensor parameters, its loss within 1e-3
+             of the step without a mesh
   serve-vlm  cross-attention: llama-3.2-vision-90b at full width cut to 2
              periods (10 layers, 21.3 GB), the same round trip, then prefill
              and 31 greedy decode steps with a (1, 576, 8192) frontend for
@@ -71,7 +81,8 @@ Phases, one result line each:
 Launch counts are zeroed just before each serve phase's main path and read
 just after it (musicgen's inputs_embeds run is a path of its own,
 serve-audio:inputs_embeds; the train phase's steps and checkpoint are path
-train). The script ends with the kernels JSON line
+train; phase dist's OLMoE run and its train step, each counted apart and
+summed, are path dist). The script ends with the kernels JSON line
 (launches summed over the paths, and per path), the card's name and power
 limit, and
 {"ok": true, "device": {...}}. It needs a CUDA card and the repository's
@@ -1374,6 +1385,263 @@ def phase_serve_moe(dev):
     return counts
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a, b = a.contiguous(), b.contiguous()
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _pinned(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    return h.copy_(t)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _counts():
+    from repro_torch.kernels import launch_counts, route_counts
+
+    return {**launch_counts(), **route_counts()}
+
+
+def _dist_olmoe(dev, mesh):
+    """Part 1 of phase dist (counted): OLMoE-1B-7B with moe_ep=True woken
+    through staging and the reshard, served under the mesh, its caches
+    carried through the KV fetch. Then, not counted, the staging again
+    (into the caching allocator's blocks, where the first one allocated
+    afresh) and the same entry points without a mesh on the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_functional_engine
+    from repro_torch.distributed import make_kv_fetch_step, make_wakeup_step, \
+        stage_from_host
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import decode_step, init_params, param_bytes, prefill, \
+        tree_bytes, use_mesh
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), moe_ep=True)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    host = tree_map(_pinned, params)             # the host copy the wake lands from
+    del params
+    torch.cuda.empty_cache()
+    nbytes = tree_bytes(host)
+    check(nbytes == param_bytes(cfg), f"{nbytes} bytes on the host, {param_bytes(cfg)} "
+          f"in the leaves")
+    fn, stage_sh, serve_sh = make_wakeup_step(cfg, mesh)
+    engine = make_functional_engine()
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, size=512),
+                             dtype=torch.long, device=dev)[None]
+    same_input = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()                        # --- the main path starts here
+    t0 = time.monotonic()
+    staged = stage_from_host(host, stage_sh, engine)
+    torch.cuda.synchronize()
+    stage_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    params = fn(staged)
+    torch.cuda.synchronize()
+    reshard_ms = (time.monotonic() - t0) * 1e3
+    del staged
+    t0 = time.monotonic()
+    with use_mesh(mesh), _probing(same_input):
+        logits, caches, clen = prefill(params, prompt, cfg, max_len=1024)
+        mesh_logits = [_whole(logits)]
+        tokens = [int(torch.argmax(mesh_logits[0][0]))]
+        for i in range(8):
+            tok = torch.tensor([tokens[-1]], dtype=torch.long, device=dev)
+            logits, caches = decode_step(params, tok, caches, clen + i, cfg)
+            mesh_logits.append(_whole(logits))
+            tokens.append(int(torch.argmax(mesh_logits[-1][0])))
+    torch.cuda.synchronize()
+    serve_s = time.monotonic() - t0
+    host_caches = tree_map(lambda c: _pinned(_whole(c)), caches)
+    fetch, _, cstage, cserve = make_kv_fetch_step(cfg, mesh, 1, 1024)
+    t0 = time.monotonic()
+    fetched = fetch(stage_from_host(host_caches, cstage, engine))
+    torch.cuda.synchronize()
+    fetch_ms = (time.monotonic() - t0) * 1e3
+    counts = _counts()                           # --- the main path ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    woken_exact = all(_same_bits(_whole(p), h.to(dev))
+                      for p, h in zip(tree_leaves(params), tree_leaves(host)))
+    placed = all(tuple(p.placements) == tuple(s.placements)
+                 for p, s in zip(tree_leaves(params), tree_leaves(serve_sh)))
+    kv_exact = all(_same_bits(_whole(f), _whole(c))
+                   for f, c in zip(tree_leaves(fetched), tree_leaves(caches)))
+    kv_placed = all(tuple(f.placements) == tuple(s.placements)
+                    for f, s in zip(tree_leaves(fetched), tree_leaves(cserve)))
+    check(woken_exact and placed, f"the woken OLMoE is not the host copy bit for bit "
+          f"(exact {woken_exact}) or not in the serving layout (placed {placed})")
+    check(kv_exact and kv_placed, f"the KV fetch is not bit-exact ({kv_exact}) or not in "
+          f"the cache layout ({kv_placed})")
+    check(all(torch.isfinite(l).all().item() and l.shape == (1, cfg.vocab)
+              for l in mesh_logits), "logits under the mesh are not finite (1, vocab)")
+    fields = _same_input_fields(same_input, cfg.n_layers, cfg.n_layers * 8)
+    check(counts["relay_assemble"] >= len(tree_leaves(host))
+          and counts["flash_attention"] == cfg.n_layers
+          and counts["decode_attention"] == 8 * cfg.n_layers,
+          f"launches under the mesh {counts}: want K1 on every staged leaf, K3 "
+          f"{cfg.n_layers} and K2 {8 * cfg.n_layers}")
+
+    # the staging again, into the allocator's cached blocks (not counted)
+    del fetched
+    t0 = time.monotonic()
+    again = stage_from_host(host, stage_sh, engine)
+    torch.cuda.synchronize()
+    stage_again_s = time.monotonic() - t0
+    del again
+
+    # the same entry points without a mesh, on the same weights (not counted)
+    # (probed as the mesh run was, so the two times differ by the mesh alone)
+    local = tree_map(lambda p: p.to_local(), params)
+    t0 = time.monotonic()
+    with _probing({}):
+        logits, caches, clen = prefill(local, prompt, cfg, max_len=1024)
+        free = [logits]
+        for i in range(8):
+            tok = torch.tensor([tokens[i]], dtype=torch.long, device=dev)
+            logits, caches = decode_step(local, tok, caches, clen + i, cfg)
+            free.append(logits)
+    torch.cuda.synchronize()
+    serve_no_mesh_s = time.monotonic() - t0
+    gap = max(max_err(a, b) for a, b in zip(mesh_logits, free))
+    bit_equal = all(_same_bits(a, b) for a, b in zip(mesh_logits, free))
+    fields.update(
+        model=cfg.name, weight_bytes=nbytes, stage_s=stage_s,
+        stage_GBps=nbytes / 1e9 / stage_s, stage_again_GBps=nbytes / 1e9 / stage_again_s,
+        reshard_ms=reshard_ms, serve_s=serve_s, serve_s_no_mesh=serve_no_mesh_s,
+        kv_fetch_ms=fetch_ms, kv_fetch_bytes=tree_bytes(host_caches),
+        woken_bit_exact=woken_exact, kv_fetch_bit_exact=kv_exact,
+        logits_max_abs_diff_vs_no_mesh=gap, logits_bit_equal_vs_no_mesh=bit_equal,
+        tokens=tokens, peak_mem_GB=peak / 1e9)
+    return fields, counts
+
+
+def _dist_train(dev, mesh):
+    """Part 2 of phase dist (counted): one AdamW step of TinyLlama-1.1B on
+    DTensor parameters under the mesh (the train phase's 8 x 512 tokens,
+    remat on); then, not counted, the step without a mesh on the same batch
+    and weights, whose loss the mesh step's is held to (1e-3 relative).
+    Each first step's seconds include its AdamW state's allocation (the
+    mesh step's also the parameters' ``distribute``; it runs first); a
+    second step of each, from the first's state, is timed alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import distribute, params_shardings
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.models import init_params, use_mesh
+    from repro_torch.training import AdamWConfig, DataConfig, SyntheticTokenStream, \
+        TrainConfig, init_adamw, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("tinyllama-1.1b")
+    stream = SyntheticTokenStream(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8))
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in stream.next_batch().items()}
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    step = make_train_step(cfg, TrainConfig(remat=True, opt=AdamWConfig(lr=1e-3,
+                                                                        warmup_steps=2)))
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()                        # --- the main path starts here
+    t0 = time.monotonic()
+    with use_mesh(mesh):
+        mp = distribute(params, params_shardings(params, mesh))
+        new_p, opt, metrics = step(mp, init_adamw(mp), batch)
+    torch.cuda.synchronize()
+    step_s = time.monotonic() - t0
+    counts = _counts()                           # --- the main path ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+    mesh_loss = metrics["loss"].item()
+    finite = all(torch.isfinite(_whole(p).float()).all().item() for p in tree_leaves(new_p))
+
+    def second_step(p, o):                       # warm: the step alone
+        t0 = time.monotonic()
+        step(p, o, batch)
+        torch.cuda.synchronize()
+        return time.monotonic() - t0
+
+    with use_mesh(mesh):
+        warm_s = second_step(new_p, opt)
+    del new_p, opt, mp
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    new_p, opt, plain = step(params, init_adamw(params), batch)
+    plain_loss = plain["loss"].item()
+    plain_s = time.monotonic() - t0
+    plain_warm_s = second_step(new_p, opt)
+    del new_p, opt
+    rel = abs(mesh_loss - plain_loss) / abs(plain_loss)
+    check(finite, "the mesh step's parameters are not finite")
+    check(rel <= 1e-3, f"the mesh step's loss {mesh_loss} is {rel:.3e} off the step "
+          f"without a mesh ({plain_loss})")
+    check(counts["flash_attention"] == 2 * cfg.n_layers,
+          f"K3 launched {counts['flash_attention']} times in the mesh step: want "
+          f"{2 * cfg.n_layers} (forward + remat)")
+    return dict(train_model=cfg.name, train_loss=mesh_loss, train_loss_no_mesh=plain_loss,
+                train_loss_rel_err=rel, train_step_s=step_s, train_step_s_no_mesh=plain_s,
+                train_second_step_s=warm_s, train_second_step_s_no_mesh=plain_warm_s,
+                train_peak_mem_GB=peak / 1e9), counts
+
+
+# Two ranks on the one card over gloo were tried on an H100 with torch
+# 2.11 (CUDA 12.8): gloo takes CUDA tensors for all_reduce,
+# all_gather_into_tensor and all_to_all_single (c10d's and
+# torch.distributed.nn's), but a DTensor redistribute over it (the
+# functional all-gather) ends rank 0 with SIGSEGV, on a (2,) and a (1, 2)
+# mesh alike. The wake-up reshard and moe_ffn_ep's layouts need that
+# redistribute, so the part with two ranks is not run; it waits for a
+# machine with two cards, where NCCL carries it.
+TWO_RANKS_ON_ONE_CARD = (
+    "not run: gloo takes CUDA tensors for all_reduce, all_gather_into_tensor and "
+    "all_to_all_single, but DTensor's redistribute over gloo on CUDA tensors ends "
+    "rank 0 with SIGSEGV; NCCL refuses two ranks on one card")
+
+
+def phase_dist(dev):
+    """The distribution layer on a one-rank NCCL mesh: ``make_host_mesh()``,
+    ("data", "model") = (1, 1). OLMoE-1B-7B at full width and depth in
+    bf16 with moe_ep=True (13.84 GB): its host copy lands in the staging
+    layout through ``stage_from_host`` (multipath_device_put per leaf, K1
+    on every one), ``make_wakeup_step``'s program reshards it into
+    ``params_shardings`` (gated: every leaf bit-exact against the host
+    copy, in the serving layout); under ``use_mesh`` a 512-token prefill
+    and 8 greedy decode steps through the DTensor parameters (K3 and K2 on
+    each rank's local heads through ``shard_map``; every call held to its
+    plain version on the same inputs); the caches carried through
+    ``make_kv_fetch_step`` (gated bit-exact); then TinyLlama-1.1B takes one
+    AdamW step on DTensor parameters (its loss held within 1e-3 relative of
+    the step without a mesh). Reported: staging GB/s, reshard ms, the
+    largest logits difference from the same entry points without a mesh,
+    peak GB. Two ranks on the card are not run: TWO_RANKS_ON_ONE_CARD says
+    why."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_host_mesh
+
+    mesh = make_host_mesh(model=1)
+    try:
+        check(tuple(mesh.shape) == (1, 1) and mesh.device_type == "cuda",
+              f"make_host_mesh gave {mesh}")
+        fields, counts = _dist_olmoe(dev, mesh)
+        torch.cuda.empty_cache()
+        train_fields, train_counts = _dist_train(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    fields.update(train_fields, two_ranks_on_one_card=TWO_RANKS_ON_ONE_CARD)
+    print(f"  dist: two ranks on one card {TWO_RANKS_ON_ONE_CARD}", flush=True)
+    counts = {k: counts.get(k, 0) + train_counts.get(k, 0) for k in {*counts, *train_counts}}
+    fields["launches"] = counts
+    report("dist", **fields)
+    return counts
+
+
 @contextlib.contextmanager
 def _counting_not_causal(counter):
     """K3's launches from calls without the causal mask (cross-attention),
@@ -1825,6 +2093,7 @@ def main(argv=None) -> int:
             ("serve", lambda: counts.update(serve=phase_serve(dev))),
             ("serve-ssm", lambda: counts.update({"serve-ssm": phase_serve_ssm(dev)})),
             ("serve-moe", lambda: counts.update({"serve-moe": phase_serve_moe(dev)})),
+            ("dist", lambda: counts.update(dist=phase_dist(dev))),
             ("serve-vlm", lambda: counts.update({"serve-vlm": phase_serve_vlm(dev)})),
             ("serve-audio", lambda: counts.update(zip(
                 ("serve-audio", "serve-audio:inputs_embeds"), phase_serve_audio(dev)))),

@@ -5,8 +5,11 @@ drops, experts as products over the expert axis), cross-attention to a
 frontend's embeddings (K3 without the causal mask, K2 at decode) and the
 ``inputs_embeds`` entry, and periods that interleave them (the hybrid
 plan, MoE cadences, the VLM's cross-attention cadence); the training loss
-(``loss_fn``) with remat per period. Expert parallelism is not ported
-yet."""
+(``loss_fn``) with remat per period; expert parallelism (``moe_ffn_ep``,
+an explicit all-to-all over the ``model`` axis) and every entry point
+under a device mesh (``use_mesh``: the parameters as DTensors, the JAX
+package's sharding constraints, the kernels on each rank's local
+heads)."""
 from .attention import (
     cross_attention,
     decode_self_attention,
@@ -30,11 +33,15 @@ from .layers import (
     mlp_forward,
     rms_norm,
     rope,
+    pspec,
     shard,
+    shard_map,
     unembed,
+    use_mesh,
 )
 from .model import decode_step, forward, loss_fn, prefill
 from .moe import load_balance_loss, moe_ffn, router
+from .moe_ep import moe_ffn_ep
 from .ssm import (
     causal_conv,
     conv_decode_step,

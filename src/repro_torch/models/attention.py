@@ -9,6 +9,13 @@ Cross-attention takes the same two kernels: K3 without the causal mask
 for S > 1 query positions, K2 over all F frontend keys for one.
 The projections stay plain matrix products, as XLA computed them outside
 any kernel.
+
+Under a mesh (``layers.use_mesh``) q, k and v carry the JAX package's
+``shard`` constraints (heads over ``model`` where they divide it, batch
+over the data axes), the KV caches the layout of ``kv_cache_spec`` (JAX's
+``shard_kv_cache``), and
+each kernel call runs through ``shard_map`` on each rank's local heads
+(``_per_head``), attention being independent per head.
 """
 from __future__ import annotations
 
@@ -18,7 +25,78 @@ import torch
 
 from ..kernels.decode_attention.ops import decode_attention_op
 from ..kernels.flash_attention.ops import flash_attention_op
-from .layers import rope
+from .layers import (
+    BATCH,
+    MODEL,
+    mesh_axis_sizes,
+    model_rank,
+    pspec,
+    rope,
+    shard,
+    shard_map,
+    split_last,
+)
+
+
+def kv_cache_spec(shape):
+    """The spec of a KV cache (B, T, G, D) (or one with leading axes) under
+    the active mesh: heads over ``model`` when divisible; otherwise the
+    sequence axis goes there when the kv_seq_shard option is on (it must
+    agree with distributed.sharding.cache_pspec)."""
+    from ..distributed.sharding import OPT
+
+    lead = (None,) * (len(shape) - 4)
+    m = mesh_axis_sizes().get(MODEL, 1)
+    if m > 1 and shape[-2] % m != 0 and OPT["kv_seq_shard"]:
+        return pspec(*lead, BATCH, MODEL, None, None, dims=shape)
+    return pspec(*lead, BATCH, None, MODEL, None, dims=shape)
+
+
+def _refuse_sequence_sharded(*specs) -> None:
+    """A cache whose sequence axis is sharded (``kv_seq_shard``) would have
+    each rank write and read its own positions as if they were all; that
+    layout is not ported."""
+    if any(s[-3] is not None for s in specs):
+        raise NotImplementedError(
+            "a sequence-sharded KV cache (OPT['kv_seq_shard'] under a mesh whose "
+            "model axis the KV heads do not divide) is not ported")
+
+
+def _per_head(fn, q, k, v, *caches):
+    """``fn(q, k, v, *caches, kv_heads)`` on each rank's local heads: q as
+    ``shard(q, BATCH, None, MODEL, None)`` lays it out, k, v and the caches
+    (B, T, G, D) as ``kv_cache_spec``. ``kv_heads`` maps a local (B, T, G,
+    D) tensor to the KV heads of the local q heads: where q's heads are
+    split over ``model`` and the G KV heads are not (G % m != 0), a rank's
+    q heads [r*H/m, (r+1)*H/m) belong to KV heads [r*H/m // R, ...]
+    (R = H/G), taken from the replicated tensor (never heads 0..);
+    elsewhere it is the identity."""
+    H, G = q.shape[2], k.shape[2]
+    q_spec = pspec(BATCH, None, MODEL, None, dims=q.shape)
+    kv_spec = kv_cache_spec(k.shape)
+
+    def local(ql, kl, vl, *cl):
+        kv_heads = _identity
+        if q_spec[2] is not None and kv_spec[2] is None:
+            R, Hl = H // G, ql.shape[2]
+            first = model_rank() * Hl
+            if Hl % R == 0 or R % Hl == 0:      # whole KV groups, or inside one
+                pick = slice(first // R, first // R + max(1, Hl // R))
+            else:                               # heads straddle groups unevenly
+                pick = (first + torch.arange(Hl, device=ql.device)) // R
+
+            def kv_heads(t):
+                return t[:, :, pick].contiguous()
+        return fn(ql, kl, vl, *cl, kv_heads)
+
+    cache_specs = tuple(kv_cache_spec(c.shape) for c in caches)
+    _refuse_sequence_sharded(*cache_specs)
+    return shard_map(local, (q_spec, kv_spec, kv_spec) + cache_specs, q_spec,
+                     q, k, v, *caches)
+
+
+def _identity(t):
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -34,7 +112,10 @@ def qkv_proj(params: Dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, ...]:
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    return q.view(B, S, H, D), k.view(B, S, G, D), v.view(B, S, G, D)
+    q = shard(split_last(q, H, D), BATCH, None, MODEL, None)
+    k = shard(split_last(k, G, D), BATCH, None, MODEL, None)
+    v = shard(split_last(v, G, D), BATCH, None, MODEL, None)
+    return q, k, v
 
 
 def out_proj(params: Dict, o: torch.Tensor, cfg) -> torch.Tensor:
@@ -58,7 +139,8 @@ def self_attention(
     q, k, v = qkv_proj(params, x, cfg)
     q = rope(q, pos, cfg.rope_theta)
     k = rope(k, pos, cfg.rope_theta)
-    o = flash_attention_op(q, k, v, causal=True, window=window)
+    o = _per_head(lambda ql, kl, vl, kv: flash_attention_op(
+        ql, kv(kl), kv(vl), causal=True, window=window), q, k, v)
     y = out_proj(params, o, cfg)
     if return_cache:
         return y, {"k": k, "v": v}
@@ -91,17 +173,23 @@ def decode_self_attention(
     """Writes the new K/V at its slot in place, then attends over the
     valid cache. For a ring buffer every slot below min(cache_len + 1, W)
     is valid: the JAX mask keeps the same set, and softmax does not depend
-    on the ring's order."""
+    on the ring's order. Under a mesh the caches must already have the
+    layout of ``kv_cache_spec`` (``transformer.run_blocks`` sees to it), so
+    the write lands in each rank's local block."""
     W = cache["k"].shape[1]
     q, k_new, v_new = qkv_proj(params, x, cfg)
     pos = torch.full((1,), cache_len, dtype=torch.int64, device=x.device)
     q = rope(q, pos, cfg.rope_theta)
     k_new = rope(k_new, pos, cfg.rope_theta)
     slot = cache_len % W if window else cache_len
-    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
     kv_len = min(cache_len + 1, W)
-    o = decode_attention_op(q, cache["k"], cache["v"], kv_len)
+
+    def write_and_attend(ql, kn, vn, kc, vc, kv):
+        kc[:, slot] = kn[:, 0].to(kc.dtype)
+        vc[:, slot] = vn[:, 0].to(vc.dtype)
+        return decode_attention_op(ql, kv(kc), kv(vc), kv_len)
+
+    o = _per_head(write_and_attend, q, k_new, v_new, cache["k"], cache["v"])
     y = out_proj(params, o, cfg)
     return y, cache
 
@@ -125,11 +213,13 @@ def cross_attention(
     F = frontend.shape[1]
     H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     frontend = frontend.to(x.dtype)
-    q = (x @ params["wq"]).view(B, S, H, D)
-    k = (frontend @ params["wk_cross"]).view(B, F, G, D)
-    v = (frontend @ params["wv_cross"]).view(B, F, G, D)
+    q = shard(split_last(x @ params["wq"], H, D), BATCH, None, MODEL, None)
+    k = split_last(frontend @ params["wk_cross"], G, D)
+    v = split_last(frontend @ params["wv_cross"], G, D)
     if S == 1:
-        o = decode_attention_op(q, k, v, F)
+        o = _per_head(lambda ql, kl, vl, kv: decode_attention_op(ql, kv(kl), kv(vl), F),
+                      q, k, v)
     else:
-        o = flash_attention_op(q, k, v, causal=False)
+        o = _per_head(lambda ql, kl, vl, kv: flash_attention_op(
+            ql, kv(kl), kv(vl), causal=False), q, k, v)
     return out_proj(params, o, cfg)

@@ -22,7 +22,6 @@ import torch
 
 from ..device import resolve_device
 from ..tree import tree_leaves, tree_map
-from .transformer import check_supported
 
 
 def _dense(gen, shape, dtype, device, scale=None) -> torch.Tensor:
@@ -110,7 +109,6 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
     """Random parameters on ``device`` (the current card by default).
     Normals are drawn on the generator's device, so a CUDA generator keeps
     a full-size init on the card."""
-    check_supported(cfg)
     device = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(device)
 
@@ -141,7 +139,6 @@ def _leaf_from_numpy(a, device) -> torch.Tensor:
 def params_from_jax(tree, cfg, device=None) -> Dict:
     """The JAX package's parameter tree (leaves as numpy arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) as the port's parameters."""
-    check_supported(cfg)
     device = resolve_device(device)
     return tree_map(lambda a: _leaf_from_numpy(a, device), tree)
 

@@ -8,7 +8,16 @@ from typing import Dict, List, Optional
 
 import torch
 
-from .layers import cross_entropy_loss, embed, rms_norm, unembed
+from .layers import (
+    BATCH,
+    MODEL,
+    as_global,
+    cross_entropy_loss,
+    embed,
+    rms_norm,
+    shard,
+    unembed,
+)
 from .transformer import init_caches, run_blocks
 
 
@@ -34,17 +43,24 @@ def forward(
     frontend's precomputed frame embeddings), cast to ``cfg.dtype``;
     ``frontend`` (B, F, d) feeds the cross-attention layers (a VLM's patch
     embeddings), which raise ``ValueError`` without it.
+
+    Under a mesh (``layers.use_mesh``, with the parameters as DTensors)
+    plain token ids and embeddings are taken as the global batch, every
+    rank holding it whole, and the logits come back as a DTensor with the
+    vocabulary over ``model``.
     """
     if inputs_embeds is not None:
-        x = inputs_embeds.to(cfg.dtype)
+        x = as_global(inputs_embeds, BATCH, None, None).to(cfg.dtype)
     else:
-        x = embed(params, tokens)
+        x = embed(params, as_global(tokens, BATCH, None))
+    x = shard(x, BATCH, None, None)
     x, new_caches, aux = run_blocks(
         params, x, cfg, mode=mode, frontend=frontend, caches=caches,
         cache_len=cache_len, window=window, remat=remat,
     )
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = unembed(params, x)
+    logits = shard(logits, BATCH, None, MODEL)
     return logits, new_caches, aux
 
 

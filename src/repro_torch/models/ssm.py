@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_chunk.ops import ssd_op
-from .layers import rms_norm
+from .layers import BATCH, MODEL, rms_norm, shard
 
 
 # ---------------------------------------------------------------------------
@@ -116,6 +116,7 @@ def mamba_block(
     tail = cfg.conv_width - 1
     z, xin_raw, Bp_raw, Cp_raw, dt = _project(params, x, cfg)
     xin = F.silu(causal_conv(xin_raw, params["conv_x_w"], params["conv_x_b"]))
+    xin = shard(xin, BATCH, None, MODEL)
     Bp = F.silu(causal_conv(Bp_raw, params["conv_B_w"], params["conv_B_b"]))
     Cp = F.silu(causal_conv(Cp_raw, params["conv_C_w"], params["conv_C_b"]))
     dt = F.softplus(dt + params["dt_bias"])                      # (b, l, h)

@@ -8,7 +8,16 @@ channel at all are ported, in any interleave within a period (the hybrid
 plan, MoE cadences, the VLM's cross-attention cadence); each MoE layer's
 load-balance loss is summed into the aux that ``run_blocks`` returns. A
 cross-attention layer reads the ``frontend`` embeddings and keeps no
-cache. Expert parallelism (``cfg.moe_ep``) raises ``NotImplementedError``.
+cache. With ``cfg.moe_ep`` the MoE channel is ``moe_ep.moe_ffn_ep``
+(experts over the ``model`` axis, an explicit all-to-all), which is
+``moe_ffn`` with no mesh or a ``model`` axis of 1.
+
+Under a mesh (``layers.use_mesh``) the residual stream is constrained to
+``(BATCH, None, None)`` after each add, as in the JAX package, and the
+caches are DTensors in the layout the layers write them in: KV caches as
+``attention.kv_cache_spec``, SSM states replicated over ``model``
+(``_cache_spec``); ``run_blocks`` lays out caches that come in otherwise
+(e.g. from ``cache_shardings``) once, in the caller's list.
 
 ``remat`` wraps each period in ``torch.utils.checkpoint`` (non-reentrant):
 its activations are recomputed in the backward pass, as JAX's
@@ -24,22 +33,42 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (
+    _refuse_sequence_sharded,
     cross_attention,
     decode_self_attention,
     init_kv_cache,
+    kv_cache_spec,
     self_attention,
 )
-from .layers import mlp_forward, rms_norm
+from .layers import (
+    BATCH,
+    _current_mesh,
+    lay_out,
+    mlp_forward,
+    pspec,
+    rms_norm,
+    shard,
+    shard_map,
+)
 from .moe import moe_ffn
+from .moe_ep import moe_ffn_ep
 from .ssm import init_ssm_state, mamba_block, mamba_block_decode
 
 
-def check_supported(cfg) -> None:
-    if cfg.moe_ep and any(channel == "moe" for _, channel in cfg.layer_plan()):
-        raise NotImplementedError(
-            "expert-parallel MoE, moe_ep=True (ROADMAP.md, queue 1 item 12) "
-            "is not ported to repro_torch yet"
-        )
+def _cache_spec(name: str, shape, stacked: bool):
+    """A cache leaf's layout under the active mesh: KV as the attention
+    layers write it, SSM states and conv tails over the batch axes only.
+    ``stacked`` leaves carry the leading n_periods axis."""
+    if name in ("k", "v"):
+        return kv_cache_spec(shape)
+    lead = (None,) if stacked else ()
+    return pspec(*lead, BATCH, *(None,) * (len(shape) - len(lead) - 1), dims=shape)
+
+
+def _laid_out(name: str, a: torch.Tensor) -> torch.Tensor:
+    """Stacked cache leaf ``a`` as a DTensor in ``_cache_spec`` layout on
+    the active mesh (itself when it has it)."""
+    return lay_out(a, _cache_spec(name, a.shape, stacked=True))
 
 
 # ---------------------------------------------------------------------------
@@ -48,7 +77,6 @@ def check_supported(cfg) -> None:
 def init_caches(cfg, batch: int, max_len: int, window: int = 0,
                 device=None) -> List:
     """Per-period-position caches with a leading n_periods axis."""
-    check_supported(cfg)
     caches: List = []
     for mixer, _ in cfg.layer_plan():
         if mixer == "attn":
@@ -62,6 +90,8 @@ def init_caches(cfg, batch: int, max_len: int, window: int = 0,
                               device=a.device)
             for name, a in one.items()
         })
+    if _current_mesh() is not None:
+        caches = [{k: _laid_out(k, a) for k, a in c.items()} for c in caches]
     return caches
 
 
@@ -69,12 +99,44 @@ def _write_prefix(c: torch.Tensor, fresh: torch.Tensor, window: int) -> None:
     """Write prefix KV into cache ``c`` in place. For a ring buffer
     (window mode) only the last W positions survive, placed at slot =
     position % W so decode continues seamlessly."""
-    fresh = fresh.to(c.dtype)
-    S, W = fresh.shape[1], c.shape[1]
-    if window and S >= W:
-        c.copy_(torch.roll(fresh[:, S - W:], S % W, dims=1))
-    else:
-        c[:, :S] = fresh
+    def write(cl, fl):
+        fl = fl.to(cl.dtype)
+        S, W = fl.shape[1], cl.shape[1]
+        if window and S >= W:
+            cl.copy_(torch.roll(fl[:, S - W:], S % W, dims=1))
+        else:
+            cl[:, :S] = fl
+
+    spec = kv_cache_spec(c.shape)
+    _refuse_sequence_sharded(spec)
+    shard_map(write, (spec, spec), None, c, fresh)
+
+
+def _ssm_mixer(p: Dict, h: torch.Tensor, cfg, mode: str, cache: Optional[Dict]):
+    """The Mamba2 mixer; in prefill and decode its SSM state and conv tails
+    replace the cache's in place. Under a mesh it runs in one
+    ``shard_map``, batch over the data axes and replicated over ``model``
+    (its weights gathered there), K4 on each rank's local batch."""
+    names, cnames = sorted(p), sorted(cache) if mode != "train" else []
+
+    def local(hl, *leaves):
+        pl = dict(zip(names, leaves[:len(names)]))
+        cl = dict(zip(cnames, leaves[len(names):]))
+        if mode == "train":
+            return mamba_block(pl, hl, cfg)
+        if mode == "decode":
+            y, state = mamba_block_decode(pl, hl, cl, cfg)
+        else:
+            y, state = mamba_block(pl, hl, cfg, return_state=True)
+        for name, t in state.items():
+            cl[name].copy_(t)
+        return y
+
+    h_spec = pspec(BATCH, None, None, dims=h.shape)
+    specs = ((h_spec,) + tuple(pspec(*(None,) * p[k].ndim) for k in names)
+             + tuple(_cache_spec(k, cache[k].shape, stacked=False) for k in cnames))
+    return shard_map(local, specs, h_spec, h, *(p[k] for k in names),
+                     *(cache[k] for k in cnames))
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +155,6 @@ def super_block(
 ):
     """Returns (hidden, caches, aux): aux is the period's summed MoE
     load-balance loss, None when the period has no MoE layer."""
-    check_supported(cfg)
     new_caches: List = []
     aux = None
     for j, (mixer, channel) in enumerate(cfg.layer_plan()):
@@ -102,34 +163,28 @@ def super_block(
         cache_j = caches[j] if caches is not None else None
         if mixer == "cross_attn":    # every mode; its cache ({}) is unchanged
             y = cross_attention(p, h, frontend, cfg)
+        elif mixer == "ssm":
+            y = _ssm_mixer(p, h, cfg, mode, cache_j)
         elif mode == "train":
-            y = (self_attention(p, h, cfg, window=window) if mixer == "attn"
-                 else mamba_block(p, h, cfg))
-        elif mixer == "attn" and mode == "decode":
+            y = self_attention(p, h, cfg, window=window)
+        elif mode == "decode":
             y, _ = decode_self_attention(
                 p, h, cache_j, cache_len, cfg, window=window
             )
-        elif mixer == "attn":
+        else:
             y, kv = self_attention(p, h, cfg, window=window, return_cache=True)
             for name in ("k", "v"):
                 _write_prefix(cache_j[name], kv[name], window)
-        else:
-            # the SSM state and conv tails replace the cache's in place
-            if mode == "decode":
-                y, state = mamba_block_decode(p, h, cache_j, cfg)
-            else:
-                y, state = mamba_block(p, h, cfg, return_state=True)
-            for name, t in state.items():
-                cache_j[name].copy_(t)
-        x = x + y
+        x = shard(x + y, BATCH, None, None)
         if channel == "moe":
             h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-            y2, aux_j = moe_ffn(p, h2, cfg, return_aux=True)
-            x = x + y2
+            ffn = moe_ffn_ep if cfg.moe_ep else moe_ffn
+            y2, aux_j = ffn(p, h2, cfg, return_aux=True)
+            x = shard(x + y2, BATCH, None, None)
             aux = aux_j if aux is None else aux + aux_j
         elif channel != "none":
             h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-            x = x + mlp_forward(p, h2, cfg.mlp)
+            x = shard(x + mlp_forward(p, h2, cfg.mlp), BATCH, None, None)
         new_caches.append(cache_j)
     return x, new_caches, aux
 
@@ -165,6 +220,9 @@ def run_blocks(
     # the periods' gradients in one pass, where indexing each period would
     # add a zero-filled gradient of the whole stacked leaf per period
     blocks = [{k: a.unbind(0) for k, a in p.items()} for p in params["blocks"]]
+    if caches is not None and _current_mesh() is not None:
+        for c in caches:
+            c.update({k: _laid_out(k, a) for k, a in c.items()})
     aux = None
     for i in range(cfg.n_periods):
         params_period = [{k: a[i] for k, a in p.items()} for p in blocks]

@@ -14,6 +14,7 @@ import math
 from typing import Any, Dict, NamedTuple, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..tree import tree_leaves, tree_map, tree_unflatten
 
@@ -51,8 +52,10 @@ def lr_schedule(cfg: AdamWConfig, step: Union[int, torch.Tensor]) -> torch.Tenso
 
 
 def init_adamw(params) -> AdamWState:
+    """Zero fp32 moments in each parameter's layout (a DTensor parameter's
+    moments are DTensors placed as it is)."""
     zeros = lambda p: tree_map(
-        lambda x: torch.zeros(x.shape, dtype=torch.float32, device=x.device), p
+        lambda x: torch.zeros_like(x, dtype=torch.float32), p
     )
     device = tree_leaves(params)[0].device
     return AdamWState(step=torch.zeros((), dtype=torch.int32, device=device),
@@ -60,9 +63,13 @@ def init_adamw(params) -> AdamWState:
 
 
 def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(
-        sum(torch.sum(torch.square(l.float())) for l in tree_leaves(tree))
-    )
+    """The l2 norm over every leaf; a DTensor leaf's sum is taken over all
+    of its shards (a plain scalar on every rank)."""
+    def sq(l):
+        s = torch.sum(torch.square(l.float()))
+        return s.full_tensor() if isinstance(s, DTensor) else s
+
+    return torch.sqrt(sum(sq(l) for l in tree_leaves(tree)))
 
 
 @torch.no_grad()

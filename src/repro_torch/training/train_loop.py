@@ -4,6 +4,12 @@ microbatch gradient accumulation, metrics, periodic checkpointing.
 JAX's ``value_and_grad`` becomes ``torch.autograd.grad`` of the loss with
 respect to the parameter leaves, and its ``lax.scan`` over microbatches a
 Python loop that sums fp32 gradients / microbatches in the same order.
+
+Under a mesh (``models.layers.use_mesh``, parameters as DTensors, e.g.
+from ``distributed.distribute``) the step is the same code: the loss is the
+mean over the global batch, each gradient comes back in its parameter's
+layout (the sums over the data axes done), and the metrics are plain
+tensors.
 """
 from __future__ import annotations
 
@@ -14,6 +20,7 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..device import DeviceLike, resolve_device
 from ..models import loss_fn
@@ -42,8 +49,15 @@ def loss_and_grads(params, batch: Dict, model_cfg, *, remat: bool = True):
     loss, metrics = loss_fn(tree_unflatten(params, leaves), batch, model_cfg,
                             remat=remat)
     grads = torch.autograd.grad(loss, leaves)
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+    grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
+             for p, g in zip(leaves, grads)]
+    return (_whole(loss.detach()), {k: _whole(v.detach()) for k, v in metrics.items()},
             tree_unflatten(params, grads))
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value as a plain tensor (a scalar metric)."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
 
 def make_train_step(model_cfg, train_cfg: TrainConfig) -> Callable:
@@ -64,8 +78,7 @@ def make_train_step(model_cfg, train_cfg: TrainConfig) -> Callable:
 
             micro = {k: split(v) for k, v in batch.items()}
             grads = tree_map(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                      device=p.device), params)
+                lambda p: torch.zeros_like(p, dtype=torch.float32), params)
             loss = torch.zeros((), dtype=torch.float32,
                                device=tree_leaves(params)[0].device)
             for i in range(mb):

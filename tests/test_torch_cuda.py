@@ -589,3 +589,59 @@ def test_kernels_without_a_gradient_refuse_one_on_the_card(dev):
         ssd_chunk_op(x, a, Bm, Bm, 32)
         flash_attention(qh, kh, kh)
 
+
+
+@pytest.fixture
+def one_rank_mesh(dev):
+    """A ("data", "model") = (1, 1) NCCL mesh over a world of one, ended
+    after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_host_mesh
+
+    mesh = make_host_mesh(model=1)
+    yield mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["tinyllama-1.1b", "olmoe-1b-7b"])
+def test_stage_from_host_and_wakeup_reshard_bit_exact_on_the_card(one_rank_mesh, name):
+    """Each leaf lands from pinned host memory through the multipath engine
+    (K1 on every leaf) into the staging layout, and the wake-up program
+    reshards it into the serving layout, bit for bit."""
+    from repro_torch.distributed import make_wakeup_step, stage_from_host
+    from repro_torch.models import abstract_params
+
+    cfg = get_config(name).reduced()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator().manual_seed(0)
+    host = tree_map(lambda a: torch.randn(a.shape, generator=gen).to(a.dtype).pin_memory(),
+                    abstract_params(cfg))
+    fn, stage_sh, serve_sh = make_wakeup_step(cfg, one_rank_mesh)
+    before = relay_assemble.launches
+    eng = make_functional_engine(config=MMAConfig(chunk_bytes=4096, fallback_bytes=0))
+    served = fn(stage_from_host(host, stage_sh, eng))
+    torch.cuda.synchronize()
+    assert relay_assemble.launches - before == len(tree_leaves(host))
+    for s, h, sh in zip(tree_leaves(served), tree_leaves(host), tree_leaves(serve_sh)):
+        assert tuple(s.placements) == tuple(sh.placements)
+        assert s.to_local().device == dev
+        assert torch.equal(s.full_tensor().cpu(), h)
+
+
+@pytest.mark.parametrize("S", [1, 512])
+def test_moe_ffn_ep_with_one_model_rank_is_moe_ffn_on_the_card(one_rank_mesh, S):
+    """With a model axis of 1, moe_ffn_ep under the mesh is moe_ffn without
+    one, exactly (outputs and aux loss), as JAX's falls back."""
+    from repro_torch.distributed import NamedSharding, P, distribute
+    from repro_torch.models import moe_ffn_ep, use_mesh
+
+    cfg, p, x = _olmoe_experts(S)
+    dev = torch.device("cuda", 0)
+    gp, gx = {k: t.to(dev) for k, t in p.items()}, x.to(dev)
+    want, aux = moe_ffn(gp, gx, cfg, return_aux=True)
+    with use_mesh(one_rank_mesh):
+        rep = NamedSharding(one_rank_mesh, P())
+        got, gaux = moe_ffn_ep(distribute(gp, {k: rep for k in gp}), distribute(gx, rep),
+                               dataclasses.replace(cfg, moe_ep=True), return_aux=True)
+    assert torch.equal(got.full_tensor(), want) and torch.equal(gaux.full_tensor(), aux)

@@ -31,6 +31,8 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch, repro_torch.core, repro_torch.models\n"
         "import repro_torch.serving, repro_torch.kernels, repro_torch.configs\n"
         "import repro_torch.training, repro_torch.workloads\n"
+        "import repro_torch.distributed, repro_torch.launch\n"
+        "import repro_torch.models.moe_ep\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ISOLATED')\n"

@@ -181,13 +181,15 @@ def test_windowed_prefill_matches_jax():
 
 @pytest.mark.parametrize("name", ["jamba-1.5-large-398b", "olmoe-1b-7b"])
 def test_unported_families_raise(name):
-    """The MoE models are ported, but not their expert-parallel form
-    (moe_ep=True)."""
+    """The expert-parallel form (moe_ep=True), refused until it was ported,
+    is accepted: with no mesh ``moe_ffn_ep`` is ``moe_ffn``, so the model
+    gives the moe_ep=False model's logits exactly (its mesh runs are held
+    to JAX in tests/test_torch_distributed.py)."""
     cfg = get_config(name).reduced()
-    if cfg.uses_moe:
-        cfg = dataclasses.replace(cfg, moe_ep=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(cfg, torch.Generator().manual_seed(0), CPU)
+    ep = dataclasses.replace(cfg, moe_ep=True)
+    params = init_params(ep, torch.Generator().manual_seed(0), CPU)
+    toks = torch.from_numpy(_tokens(cfg, 2, 8)).long()
+    assert torch.equal(forward(params, toks, ep)[0], forward(params, toks, cfg)[0])
 
 
 CATALOG = sorted({**ARCHS, **PAPER_MODELS})

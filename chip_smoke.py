@@ -17,6 +17,9 @@ Phases, one result line each:
              heads on 8 KV heads of 128 ("vlm" in their rows): K3 without
              the causal mask over 576 frontend keys (and a ragged 100), K2
              over all 576;
+             K2 and K3 at the entry points' shapes ("launch_serve": 48-token
+             prompts, a 256-token cache; "launch_train": K3's fp32 kernel at
+             8 x 128 tokens, bound by the fp32 peak);
              K3 also through the model-layout wrapper, at a 2048-token
              prompt (its share of the operations bound) and at the train
              phase's 8 x 512 tokens with its backward (PyTorch ops) held
@@ -77,12 +80,29 @@ Phases, one result line each:
              backward. Step 1's gradient, computed apart, probes every K3
              forward and backward against the plain version on the same
              inputs, and its loss against the plain path's
+  launch-serve  the serving entry point, repro_torch.launch.serve.run, with
+             TinyLlama-1.1B at full width in bf16 and the JAX launcher's
+             defaults (6 requests of 48 tokens, 6 new tokens each, request 3
+             repeating the first prompt): K3 per prefill, K2 per decode
+             step; then apart, every K3/K2 call of the same run held to its
+             plain version on the same inputs, and the plain path's greedy
+             tokens equal to the kernels'
+  launch-train  the training entry point, repro_torch.launch.train.main
+             --no-reduced --steps 4: TinyLlama-1.1B at full width in fp32,
+             batch 8 x 128, remat, on a one-rank NCCL mesh (K3's fp32
+             kernel); every loss finite, step 0's loss within 1e-3 of
+             loss_fn through the plain path on the same weights and batch
+  dryrun     python -m repro_torch.launch.dryrun for tinyllama-1.1b x
+             decode_32k on 16x16 and 2x16x16 in a process of its own with
+             the card hidden (a fake world, the step on the meta device):
+             both combos ok; per-device counts and the roofline terms
 
 Launch counts are zeroed just before each serve phase's main path and read
 just after it (musicgen's inputs_embeds run is a path of its own,
 serve-audio:inputs_embeds; the train phase's steps and checkpoint are path
 train; phase dist's OLMoE run and its train step, each counted apart and
-summed, are path dist). The script ends with the kernels JSON line
+summed, are path dist; the two entry points' runs are paths launch-serve
+and launch-train). The script ends with the kernels JSON line
 (launches summed over the paths, and per path), the card's name and power
 limit, and
 {"ok": true, "device": {...}}. It needs a CUDA card and the repository's
@@ -108,8 +128,13 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
-BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
+SRC = ROOT / "src"
+if (SRC / "repro_torch" / "__init__.py").is_file():   # main() fails without it
+    sys.path.insert(0, str(SRC))
+    # H100 SXM: HBM bytes/s and the dense bf16 tensor-core peak
+    from repro_torch.launch.roofline import HBM_GBPS as HBM_BYTES_PER_S
+    from repro_torch.launch.roofline import PEAK_FLOPS_BF16 as BF16_FLOPS
+FP32_FLOPS = 67e12                 # H100 SXM fp32 outside the tensor cores
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
 
@@ -262,14 +287,16 @@ def _flash_served(dev, gen, B, H, G, D, S, T=None, causal=True):
     qm, km, vm = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     shape = (f"q ({B}, {H}, {S}, {D}) k,v ({B}, {G}, {T}, {D}) bf16 "
              f"{'causal' if causal else 'not causal'}")
-    check(torch.equal(flash_attention_op(qm, km, vm, causal=causal),
-                      flash_attention(q, k, v, causal=causal).transpose(1, 2)),
+    out = flash_attention(q, k, v, causal=causal)
+    check(torch.equal(flash_attention_op(qm, km, vm, causal=causal), out.transpose(1, 2)),
           f"flash_attention_op differs from flash_attention at {shape}")
+    err = max_err(out, flash_attention_ref(q, k, v, causal=causal))
+    check(err <= TOL[torch.bfloat16], f"flash_attention at {shape}: err {err}")
     # causal (T = S): half of 4 * B * H * S^2 * D
     flops = 2 * B * H * S * S * D if causal else 4 * B * H * S * T * D
     moved = nbytes(q, k, v, q)
     return {
-        "shape": shape,
+        "shape": shape, "max_abs_err": err,
         **timed("ms", lambda: flash_attention(q, k, v, causal=causal), 20),
         **timed("op_ms", lambda: flash_attention_op(qm, km, vm, causal=causal), 20),
         **timed("plain_ms", lambda: flash_attention_ref(q, k, v, causal=causal), 20),
@@ -277,6 +304,33 @@ def _flash_served(dev, gen, B, H, G, D, S, T=None, causal=True):
             q, k, v, is_causal=causal, enable_gqa=True), 20),
         "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
+        else "bytes",
+    }
+
+
+def _flash_fp32(dev, gen, B, H, G, D, S):
+    """K3's fp32 kernel (the CUDA-core path), causal, at the training entry
+    point's shape: held to the plain version, timed beside it and SDPA
+    (TF32 off), bound by the fp32 peak outside the tensor cores."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention, flash_attention_ref
+
+    q = torch.randn(B, H, S, D, device=dev, generator=gen)
+    k = torch.randn(B, G, S, D, device=dev, generator=gen)
+    v = torch.randn(B, G, S, D, device=dev, generator=gen)
+    shape = f"q ({B}, {H}, {S}, {D}) k,v ({B}, {G}, {S}, {D}) float32 causal"
+    err = max_err(flash_attention(q, k, v), flash_attention_ref(q, k, v))
+    check(err <= TOL[torch.float32], f"flash_attention at {shape}: err {err}")
+    flops = 2 * B * H * S * S * D
+    moved = nbytes(q, k, v, q)
+    return {
+        "shape": shape, "max_abs_err": err,
+        **timed("ms", lambda: flash_attention(q, k, v), 20),
+        **timed("plain_ms", lambda: flash_attention_ref(q, k, v), 20),
+        **timed("library_ms", lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20),
+        "bound_ms": max(flops / FP32_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / FP32_FLOPS > moved / HBM_BYTES_PER_S
         else "bytes",
     }
 
@@ -339,18 +393,25 @@ def _flash_case(dev, gen):
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:66",
+        **_flash_served(dev, gen, B, 32, 4, 64, 512),
         "max_abs_err": worst[torch.bfloat16],
         "max_abs_err_f32": worst[torch.float32],
-        **_flash_served(dev, gen, B, 32, 4, 64, 512),
         "olmoe": _flash_served(dev, gen, B, 16, 16, 128, 512),
         "vlm": {"cross": _flash_served(dev, gen, B, 64, 8, 128, 512, 576, causal=False),
                 "self": _flash_served(dev, gen, B, 64, 8, 128, 512)},
+        # the entry points' shapes: launch.serve's 48-token prompts, and
+        # launch.train's 8 x 128 tokens in fp32
+        "launch_serve": _flash_served(dev, gen, B, 32, 4, 64, 48),
+        "launch_train": _flash_fp32(dev, gen, 8, 32, 4, 64, 128),
     }
     for name, o in (("olmoe", row["olmoe"]), ("vlm cross", row["vlm"]["cross"]),
-                    ("vlm self", row["vlm"]["self"])):
-        print(f"  flash_attention {name} {o['shape']}: ms={o['ms']:.5f} op_ms={o['op_ms']:.5f} "
+                    ("vlm self", row["vlm"]["self"]), ("launch_serve", row["launch_serve"]),
+                    ("launch_train", row["launch_train"])):
+        op = f" op_ms={o['op_ms']:.5f}" if "op_ms" in o else ""
+        print(f"  flash_attention {name} {o['shape']}: ms={o['ms']:.5f}{op} "
               f"plain_ms={o['plain_ms']:.5f} sdpa_ms={o['library_ms']:.5f} "
-              f"bound_ms={o['bound_ms']:.5f} ({o['bound_by']})", flush=True)
+              f"bound_ms={o['bound_ms']:.5f} ({o['bound_by']}) "
+              f"max_abs_err={o['max_abs_err']:.3e}", flush=True)
     # A long prompt, where the products and not the bytes bound the call.
     H, G, D, S = 32, 4, 64, 2048
     q = torch.randn(B, H, S, D, device=dev, generator=gen).to(torch.bfloat16)
@@ -453,8 +514,11 @@ def _decode_served(dev, gen, B, H, G, D, T, L):
     lens = torch.full((B,), L, dtype=torch.int32, device=dev)
     kp, vp = k[:, :, :L], v[:, :, :L]
     read = nbytes(q) + 2 * B * G * L * D * 2
+    shape = f"q ({B}, {H}, {D}) k,v ({B}, {G}, {T}, {D}) bf16 kv_len={L}"
+    err = max_err(decode_attention(q, k, v, L), decode_attention_ref(q, k, v, L))
+    check(err <= TOL[torch.bfloat16], f"decode_attention at {shape}: err {err}")
     return {
-        "shape": f"q ({B}, {H}, {D}) k,v ({B}, {G}, {T}, {D}) bf16 kv_len={L}",
+        "shape": shape, "max_abs_err": err,
         **timed("ms", lambda: decode_attention(q, k, v, L), 50),
         **timed("array_kv_len_ms", lambda: decode_attention(q, k, v, lens), 50),
         **timed("plain_ms", lambda: decode_attention_ref(q, k, v, lens), 50),
@@ -537,15 +601,17 @@ def _decode_case(dev, gen):
         "name": "decode_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/decode_attention.cu",
         "replaces": "src/repro/kernels/decode_attention/decode_attention.py:60",
+        **_decode_served(dev, gen, B, 32, 4, 64, T, 300),
         "max_abs_err": worst[torch.bfloat16],
         "max_abs_err_f32": worst[torch.float32],
-        **_decode_served(dev, gen, B, 32, 4, 64, T, 300),
         "olmoe": _decode_served(dev, gen, B, 16, 16, 128, T, 300),
         "vlm": {"self": _decode_served(dev, gen, B, 64, 8, 128, T, 300),
                 "cross": _decode_served(dev, gen, B, 64, 8, 128, 576, 576)},
+        # launch.serve's cache (max_len 256), at its last decode step
+        "launch_serve": _decode_served(dev, gen, B, 32, 4, 64, 256, 53),
     }
     for name, o in (("olmoe", row["olmoe"]), ("vlm self", row["vlm"]["self"]),
-                    ("vlm cross", row["vlm"]["cross"])):
+                    ("vlm cross", row["vlm"]["cross"]), ("launch_serve", row["launch_serve"])):
         print(f"  decode_attention {name} {o['shape']}: ms={o['ms']:.6f} "
               f"plain_ms={o['plain_ms']:.6f} sdpa_ms={o['library_ms']:.6f} "
               f"bound_ms={o['bound_ms']:.6f} (bytes)", flush=True)
@@ -2062,6 +2128,159 @@ def phase_train(dev):
     return counts
 
 
+def phase_launch_serve(dev):
+    """The serving entry point: ``repro_torch.launch.serve.run`` with
+    TinyLlama-1.1B at full width and depth in bf16 (random weights from seed
+    0) on the card, with the JAX launcher's defaults: 6 requests of 48
+    tokens, 6 new tokens each, every 3rd request repeating the first prompt
+    (request 3 hits the prefix cache). That run is the counted path. Then,
+    not counted, the same run with every K3 and K2 call held to its plain
+    version on the same inputs (``_probing``), and the same run through the
+    plain versions (``_plain_attention``), whose greedy tokens must equal
+    the kernels'."""
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params
+
+    cfg = get_config("tinyllama-1.1b")             # full width and depth, bf16
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()                        # --- the main path starts here
+    t0 = time.monotonic()
+    done, srv = serve.run(cfg, params=params, device=dev)
+    torch.cuda.synchronize()
+    serve_s = time.monotonic() - t0
+    counts = _counts()                           # --- the main path ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    same_input = {}
+    with _probing(same_input), contextlib.redirect_stdout(io.StringIO()):
+        probed, _ = serve.run(cfg, params=params, device=dev)
+    with _plain_attention(), contextlib.redirect_stdout(io.StringIO()):
+        plain, _ = serve.run(cfg, params=params, device=dev)
+    tokens = [r.generated for r in done]
+    hits = [r.hit_tokens for r in done]
+    check(counts["flash_attention"] > 0 and counts["decode_attention"] > 0,
+          f"K3 or K2 was not launched on the main path: {counts}")
+    check(hits[3] > 0 and sum(h > 0 for h in hits) >= 1,
+          f"no prefix hit on request 3 (hits {hits})")
+    check(all(len(t) == 6 and all(0 <= x < cfg.vocab for x in t) for t in tokens),
+          f"bad generations {tokens}")
+    fields = _same_input_fields(same_input, counts["flash_attention"],
+                                counts["decode_attention"])
+    check([r.generated for r in probed] == tokens, "the probed run generated other tokens")
+    check([r.generated for r in plain] == tokens,
+          f"the plain path's greedy tokens differ: {[r.generated for r in plain]} "
+          f"against {tokens}")
+    n_tokens = sum(len(t) for t in tokens)
+    report("launch-serve", model=cfg.name, entry="repro_torch.launch.serve.run",
+           requests=len(done), prompt_len=48, max_new=6, hit_tokens=hits,
+           ttft_ms=[r.ttft * 1e3 for r in done], tokens=n_tokens, serve_s=serve_s,
+           tokens_per_s=n_tokens / serve_s, peak_mem_GB=peak / 1e9,
+           tokens_equal_plain=True, transfer_log=srv.transfer_log, **fields,
+           launches=counts)
+    return counts
+
+
+def phase_launch_train(dev):
+    """The training entry point: ``repro_torch.launch.train.main`` with
+    ``--arch tinyllama-1.1b --no-reduced --steps 4 --device cuda``: fp32 at
+    full width and depth, the JAX launcher's batch 8 x seq 128, remat, AdamW
+    (lr 1e-3, warmup 10), the parameters and moments as DTensors on a
+    one-rank NCCL mesh from ``make_host_mesh`` (the launcher starts the
+    world and ends it). K3 runs its fp32 kernel forward and under remat.
+    Gated: every loss finite, and step 0's loss within 1e-3 relative of
+    ``loss_fn`` through the plain path (K3's plain version, no mesh) on the
+    same initial parameters and first batch (not counted)."""
+    import repro_torch.launch.train as launch_train
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels import flash_attention_op_ref, reset_launch_counts
+    from repro_torch.models import loss_fn
+    from repro_torch.training import DataConfig, SyntheticTokenStream
+
+    initial = {}
+    make_params = launch_train.init_params
+
+    def keep_initial(cfg, gen, device):          # the step replaces, never updates, them
+        initial["cfg"], initial["params"] = cfg, make_params(cfg, gen, device)
+        return initial["params"]
+
+    argv = ["--arch", "tinyllama-1.1b", "--no-reduced", "--steps", "4", "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()                        # --- the main path starts here
+    t0 = time.monotonic()
+    with mock.patch.object(launch_train, "init_params", keep_initial):
+        history = launch_train.main(argv)
+    torch.cuda.synchronize()
+    main_s = time.monotonic() - t0
+    counts = _counts()                           # --- the main path ends here
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    cfg = initial["cfg"]
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in
+             SyntheticTokenStream(DataConfig(vocab=cfg.vocab, seq_len=128,
+                                             global_batch=8)).next_batch().items()}
+    with torch.no_grad(), \
+            mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref):
+        plain = loss_fn(initial["params"], batch, cfg)[0].item()
+    del initial
+    losses = [h["loss"] for h in history]
+    rel = abs(losses[0] - plain) / abs(plain)
+    wall = [0.0] + [h["wall_s"] for h in history]
+    step_ms = [1e3 * (b - a) for a, b in zip(wall, wall[1:])]
+    check(cfg.dtype == torch.float32 and cfg.d_model == 2048 and cfg.n_layers == 22,
+          f"--no-reduced gave {cfg.name} d {cfg.d_model} x {cfg.n_layers} in {cfg.dtype}")
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"losses not finite: {losses}")
+    check(rel <= 1e-3, f"step 0's loss {losses[0]} is {rel:.3e} off the plain path's {plain}")
+    k3_want = 4 * 2 * cfg.n_layers
+    check(counts["flash_attention"] == k3_want and counts["decode_attention"] == 0
+          and counts["ssd_chunk"] == 0,
+          f"launches {counts}: want K3 {k3_want} (forward + remat per layer), K2 and K4 0")
+    report("launch-train", model=cfg.name, entry="repro_torch.launch.train.main",
+           argv=argv, dtype="float32", batch=[8, 128], losses=losses,
+           grad_norms=[h["grad_norm"] for h in history], step0_loss_plain=plain,
+           step0_loss_rel_err=rel, step_ms=step_ms,
+           tokens_per_s=8 * 128 / (np.mean(step_ms[1:]) / 1e3), main_s=main_s,
+           peak_mem_GB=peak / 1e9, launches=counts)
+    return counts
+
+
+def phase_dryrun():
+    """``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape
+    decode_32k --both-meshes`` in a process of its own with the card hidden
+    (a fake world of 256, then 512 ranks; the step on the meta device):
+    both combos ok with 256 and 512 ranks. Prints the per-device counts and
+    the roofline terms from the H100's constants."""
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "dryrun.jsonl"
+        env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "tinyllama-1.1b",
+             "--shape", "decode_32k", "--both-meshes", "--out", str(out)],
+            env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        run_s = time.monotonic() - t0
+        check(proc.returncode == 0,
+              f"the dry-run failed ({proc.returncode}): {proc.stdout[-2000:]}"
+              f"{proc.stderr[-2000:]}")
+        results = [json.loads(l) for l in out.read_text().splitlines()]
+    check([(r["ok"], r.get("n_chips")) for r in results] == [(True, 256), (True, 512)],
+          f"dry-run combos: {results}")
+    keys = ("mesh", "n_chips", "flops_per_device", "hbm_bytes_per_device",
+            "collective_bytes_per_device", "collective_counts", "compute_s", "memory_s",
+            "collective_s", "dominant", "flops_ratio", "memory_analysis")
+    report("dryrun", arch="tinyllama-1.1b", shape="decode_32k", torch=torch.__version__,
+           run_s=run_s, combos=[{k: r[k] for k in keys} for r in results])
+
+
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2071,11 +2290,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("FAIL no CUDA device: chip_smoke.py runs only on a card", flush=True)
         return 2
-    if not (ROOT / "src" / "repro_torch" / "__init__.py").is_file():
-        print(f"FAIL {ROOT / 'src' / 'repro_torch'} not found: run from a checkout",
-              flush=True)
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print(f"FAIL {SRC / 'repro_torch'} not found: run from a checkout", flush=True)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.out is not None:
@@ -2098,6 +2315,9 @@ def main(argv=None) -> int:
             ("serve-audio", lambda: counts.update(zip(
                 ("serve-audio", "serve-audio:inputs_embeds"), phase_serve_audio(dev)))),
             ("train", lambda: counts.update(train=phase_train(dev))),
+            ("launch-serve", lambda: counts.update({"launch-serve": phase_launch_serve(dev)})),
+            ("launch-train", lambda: counts.update({"launch-train": phase_launch_train(dev)})),
+            ("dryrun", phase_dryrun),
         ):
             t0 = time.monotonic()
             run()

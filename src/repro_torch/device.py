@@ -10,10 +10,13 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """The caller's device, else the current CUDA card. Raises when no
-    card is present and the caller did not name a device."""
+    """The caller's device, else the current CUDA card ("cuda" without an
+    index names it too). Raises when that card is wanted and none is
+    present."""
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type != "cuda" or device.index is not None:
+            return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run on the CPU"

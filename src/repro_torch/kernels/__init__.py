@@ -2,7 +2,8 @@
 its plain PyTorch version (``ref.py``) beside the wrapper that launches it.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
-for a CPU tensor. Each keeps a plain integer ``launches`` count, raised by
+for a CPU tensor, and for a meta tensor (the dry-run's route: shapes only,
+nothing launched); any other device raises. Each keeps a plain integer ``launches`` count, raised by
 one where the kernel is launched and nowhere else; K4 also counts its
 launches by route (``ssd_chunk.route_launches``). K3 carries a gradient
 through ``FlashAttentionFn`` (its backward is PyTorch ops, recomputing the

@@ -112,7 +112,8 @@ def decode_attention(
         )
     check_inputs("decode_attention", q, k, v, (B, H, G, D))
     check_kv_len(kv_len, B)
-    if q.device.type == "cpu":
+    # meta: the dry-run's route, shapes only; nothing is launched
+    if q.device.type in ("cpu", "meta"):
         return decode_attention_ref(q, k, v, kv_len)
     out = torch.empty_like(q)
     launch(

@@ -28,7 +28,8 @@ def decode_attention_op(
         )
     check_inputs("decode_attention_op", q, k_cache, v_cache, (B, H, G, D))
     check_kv_len(kv_len, B)
-    if q.device.type == "cpu":
+    # meta: the dry-run's route, shapes only; nothing is launched
+    if q.device.type in ("cpu", "meta"):
         return decode_attention_op_ref(q, k_cache, v_cache, kv_len)
     out = torch.empty_like(q)
     launch(

@@ -37,7 +37,7 @@ def check_inputs(name: str, q, k, v, dims) -> None:
     tensors = (q, k, v)
     if any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: q, k, v must be on one device")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {q.device}")
     if any(t.dtype != q.dtype for t in tensors) or q.dtype not in DTYPES:
         raise TypeError(
@@ -94,7 +94,8 @@ def flash_attention(
             f"flash_attention: q {tuple(q.shape)} vs k {tuple(k.shape)}"
         )
     check_inputs("flash_attention", q, k, v, (B, H, G, D))
-    if q.device.type == "cpu":
+    # meta: the dry-run's route, shapes only; nothing is launched
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
     out = torch.empty_like(q)

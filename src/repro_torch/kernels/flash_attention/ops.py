@@ -20,7 +20,8 @@ from .ref import NEG_INF, flash_attention_ref
 def _forward(q, k, v, causal: bool, window: int, q_offset: int) -> torch.Tensor:
     B, Sq, H, D = q.shape
     T, G = k.shape[1], k.shape[2]
-    if q.device.type == "cpu":
+    # meta: the dry-run's route, shapes only; nothing is launched
+    if q.device.type in ("cpu", "meta"):
         return flash_attention_op_ref(q, k, v, causal=causal, window=window,
                                       q_offset=q_offset)
     out = torch.empty_like(q)

@@ -25,7 +25,8 @@ def relay_assemble(staged: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"relay_assemble: perm must be int32, got {perm.dtype}")
     if perm.device != staged.device:
         raise ValueError("relay_assemble: perm and staged on different devices")
-    if staged.device.type == "cpu":
+    # meta: the dry-run's route, shapes only; nothing is launched
+    if staged.device.type in ("cpu", "meta"):
         return relay_assemble_ref(staged, perm)
     if staged.device.type != "cuda":
         raise ValueError(f"relay_assemble: unsupported device {staged.device}")

@@ -45,7 +45,8 @@ def ssd_chunk_op(
     names a route (``ssd_chunk.route``'s default otherwise); the CPU runs
     the plain version whatever it says."""
     _check(xbar, a, B, C, chunk)
-    if xbar.device.type == "cpu":
+    # meta: the dry-run's route, shapes only; nothing is launched
+    if xbar.device.type in ("cpu", "meta"):
         return ssd_chunk_op_ref(xbar, a, B, C, chunk)
     b, l, h, p = xbar.shape
     g, n = B.shape[2], B.shape[3]

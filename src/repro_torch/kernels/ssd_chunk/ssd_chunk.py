@@ -65,7 +65,7 @@ def check_inputs(name: str, x, a, B, C) -> None:
     tensors = (x, a, B, C)
     if any(t.device != x.device for t in tensors):
         raise ValueError(f"{name}: x, a, B, C must be on one device")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in DTYPES or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(
@@ -138,7 +138,8 @@ def ssd_chunk(
             f"B {tuple(B.shape)} do not agree"
         )
     check_inputs("ssd_chunk", xbar, a, B, C)
-    if xbar.device.type == "cpu":
+    # meta: the dry-run's route, shapes only; nothing is launched
+    if xbar.device.type in ("cpu", "meta"):
         return ssd_chunk_ref(xbar, a, B, C)
     x, a, B, C = (t.contiguous() for t in (xbar, a.float(), B, C))
     y = torch.empty_like(x)

@@ -44,11 +44,13 @@ class TrainConfig:
 def loss_and_grads(params, batch: Dict, model_cfg, *, remat: bool = True):
     """``loss_fn`` at ``params`` on ``batch`` and its gradient with respect
     to every leaf, as JAX's ``value_and_grad(loss_fn, has_aux=True)``:
-    (loss, metrics, grads in ``params``' structure), all detached."""
+    (loss, metrics, grads in ``params``' structure), all detached. A leaf
+    the loss does not use (the token embedding of a batch fed through
+    ``inputs_embeds``) gets a zero gradient, as in JAX."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     loss, metrics = loss_fn(tree_unflatten(params, leaves), batch, model_cfg,
                             remat=remat)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
     grads = [g.redistribute(p.device_mesh, p.placements) if isinstance(p, DTensor) else g
              for p, g in zip(leaves, grads)]
     return (_whole(loss.detach()), {k: _whole(v.detach()) for k, v in metrics.items()},

@@ -645,3 +645,58 @@ def test_moe_ffn_ep_with_one_model_rank_is_moe_ffn_on_the_card(one_rank_mesh, S)
         got, gaux = moe_ffn_ep(distribute(gp, {k: rep for k in gp}), distribute(gx, rep),
                                dataclasses.replace(cfg, moe_ep=True), return_aux=True)
     assert torch.equal(got.full_tensor(), want) and torch.equal(gaux.full_tensor(), aux)
+
+
+def test_serve_launcher_on_the_card_matches_cpu(dev):
+    """``launch.serve.run`` with the reduced fp32 TinyLlama on the card: K3
+    once per prefill layer and K2 once per decode step and layer, a prefix
+    hit on request 3, the printed lines and the tokens of the same run on
+    the CPU with the same weights."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+
+    cfg = get_config("tinyllama-1.1b").reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    printed = {}
+    for where, params in (("cpu", cpu_params),
+                          ("cuda", tree_map(lambda t: t.to(dev), cpu_params))):
+        reset_launch_counts()
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            done, _ = serve.run(cfg, params=params, device=dev if where == "cuda" else "cpu")
+        printed[where] = (out.getvalue(), launch_counts())
+    (cpu_out, cpu_counts), (gpu_out, gpu_counts) = printed["cpu"], printed["cuda"]
+    # request ids count on across servers
+    assert re.sub(r"req \d+", "req", gpu_out) == re.sub(r"req \d+", "req", cpu_out)
+    assert "1 prefix hits" in gpu_out
+    assert done[3].hit_tokens == 48
+    assert cpu_counts["flash_attention"] == cpu_counts["decode_attention"] == 0
+    assert gpu_counts["flash_attention"] == 6 * cfg.n_layers
+    assert gpu_counts["decode_attention"] == 6 * 5 * cfg.n_layers
+
+
+def test_train_launcher_step_on_the_card_matches_cpu(dev):
+    """One ``launch.train`` step of the reduced fp32 TinyLlama on the card
+    (a one-rank NCCL mesh) against the same step on the CPU (gloo), the
+    same initial weights: loss and gradient norm within 1e-4 relative."""
+    import repro_torch.launch.train as launch_train
+
+    cfg = get_config("tinyllama-1.1b").reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    argv = ["--steps", "1", "--batch", "2", "--seq", "16"]
+    with _init_params_from(launch_train, cpu_params):
+        card = launch_train.main(argv + ["--device", "cuda"])
+        host = launch_train.main(argv + ["--device", "cpu"])
+    for key in ("loss", "grad_norm"):
+        assert card[0][key] == pytest.approx(host[0][key], rel=1e-4)
+
+
+def _init_params_from(module, params):
+    """``module.init_params`` giving ``params`` on the device asked for."""
+    from unittest import mock
+
+    return mock.patch.object(module, "init_params",
+                             lambda cfg, gen, device: tree_map(lambda t: t.to(device), params))

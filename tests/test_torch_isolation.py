@@ -33,6 +33,13 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.training, repro_torch.workloads\n"
         "import repro_torch.distributed, repro_torch.launch\n"
         "import repro_torch.models.moe_ep\n"
+        "import repro_torch.launch.serve, repro_torch.launch.specs\n"
+        "import repro_torch.launch.train, repro_torch.launch.roofline\n"
+        "import repro_torch.launch.dryrun, repro_torch.examples\n"
+        "import repro_torch.examples.quickstart, repro_torch.examples.kv_fetch_serving\n"
+        "import repro_torch.examples.model_switching, repro_torch.examples.train_small\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()   # importing starts no world\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ISOLATED')\n"
@@ -71,10 +78,21 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     cfg = get_config("tinyllama-1.1b").reduced()
     for call in (
         lambda: resolve_device(None),
+        lambda: resolve_device("cuda"),
         lambda: make_functional_engine(),
         lambda: multipath_device_put(torch.zeros(4)),
         lambda: init_params(cfg),
         lambda: FunctionalServer(cfg),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    import repro_torch.launch.serve as serve
+    import repro_torch.launch.train as train
+
+    for call in (
+        lambda: serve.main(["--requests", "1"]),
+        lambda: train.main(["--steps", "1"]),
+        lambda: serve.run(cfg, device="cuda"),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
@@ -84,6 +102,15 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(monkeypatch):
     assert multipath_device_put(torch.arange(4), engine=eng).device.type == "cpu"
     srv = FunctionalServer(cfg, device="cpu", max_len=16)
     assert srv.params["embedding"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("example", ["quickstart", "kv_fetch_serving", "model_switching",
+                                     "train_small"])
+def test_examples_need_a_card_unless_asked_for_cpu(example):
+    out = subprocess.run([sys.executable, "-m", f"repro_torch.examples.{example}"],
+                         env=_env(), capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device available; pass device='cpu'" in out.stderr
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

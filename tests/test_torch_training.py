@@ -135,6 +135,26 @@ def test_loss_and_grads_match_jax(name, frontend):
         _close_to_scale(_np(g), np.asarray(jg), GRAD_TOL)
 
 
+def test_loss_and_grads_through_inputs_embeds_match_jax():
+    """musicgen trained from frame embeddings: the token embedding is not
+    used, and its gradient is zero on both sides."""
+    jcfg, tcfg, jp, tp = _pair("musicgen-large")
+    batch = _batch(tcfg, 2, 16)
+    batch["inputs_embeds"] = np.random.default_rng(2).standard_normal(
+        (2, 16, tcfg.d_model)).astype(np.float32)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True),
+                                 static_argnums=2)(
+        jp, {k: jnp.asarray(v) for k, v in batch.items()}, jcfg)
+    loss, _, grads = _port_grads(tp, batch, tcfg)
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=LOSS_RTOL)
+    assert not np.any(np.asarray(jgrads["embedding"]))
+    jleaves = jax.tree.leaves(jgrads)
+    assert len(jleaves) == len(grads)
+    for g, jg in zip(grads, jleaves):
+        assert tuple(g.shape) == jg.shape
+        _close_to_scale(_np(g), np.asarray(jg), GRAD_TOL)
+
+
 def test_remat_gives_the_same_grads():
     _, tcfg, _, tp = _pair("tinyllama-1.1b")
     batch = _batch(tcfg, 2, 16)

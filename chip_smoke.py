@@ -19,7 +19,11 @@ Phases, one result line each:
              over all 576;
              K2 and K3 at the entry points' shapes ("launch_serve": 48-token
              prompts, a 256-token cache; "launch_train": K3's fp32 kernel at
-             8 x 128 tokens, bound by the fp32 peak);
+             8 x 128 tokens, bound by the fp32 peak); K2 and K3 at
+             gemma-7b's 16 heads of 256 on 16 KV heads ("gemma": the served
+             prefill and decode; "gemma_f32": K3's fp32 kernel at 8 x 128
+             tokens), and held to the plain versions at heads of 192 and
+             160 too (the cp.async path);
              K3 also through the model-layout wrapper, at a 2048-token
              prompt (its share of the operations bound) and at the train
              phase's 8 x 512 tokens with its backward (PyTorch ops) held
@@ -70,6 +74,15 @@ Phases, one result line each:
              trip and the 4 requests from tokens, then a prefill from
              (1, 512, 2048) frame embeddings (inputs_embeds) and 8 decode
              steps, held as serve-vlm holds its first prompt
+  serve-gemma  gemma-7b at full width and depth (17.08 GB; heads of 256):
+             the round trip and the 4 requests, K3 and K2 28 times per
+             prefill and per decode step; then launch.serve.run with its
+             full config, counted as path serve-gemma:launch-serve. Every
+             K3/K2 call of the first request's prefill and 8 steps, and of
+             the entry point's run, held to its plain version on the same
+             inputs; the logits and greedy tokens against the plain path
+             reported, and held only where the plain path given 1e-5 of
+             attention noise stays within 2e-2
   train      the training path: TinyLlama-1.1B at full width and depth in
              bf16 through repro_torch.training.train on 8 x 512 synthetic
              tokens, remat on: 4 AdamW steps, a checkpoint of params and
@@ -92,14 +105,16 @@ Phases, one result line each:
              batch 8 x 128, remat, on a one-rank NCCL mesh (K3's fp32
              kernel); every loss finite, step 0's loss within 1e-3 of
              loss_fn through the plain path on the same weights and batch
-  dryrun     python -m repro_torch.launch.dryrun for tinyllama-1.1b x
-             decode_32k on 16x16 and 2x16x16 in a process of its own with
+  dryrun     python -m repro_torch.launch.dryrun for tinyllama-1.1b and
+             gemma-7b x decode_32k on 16x16 and 2x16x16, and tinyllama-1.1b
+             with --opt kv_seq_shard on 16x16, three processes at once with
              the card hidden (a fake world, the step on the meta device):
-             both combos ok; per-device counts and the roofline terms
+             every combo ok; per-device counts and the roofline terms
 
 Launch counts are zeroed just before each serve phase's main path and read
 just after it (musicgen's inputs_embeds run is a path of its own,
-serve-audio:inputs_embeds; the train phase's steps and checkpoint are path
+serve-audio:inputs_embeds, and gemma's entry-point run
+serve-gemma:launch-serve; the train phase's steps and checkpoint are path
 train; phase dist's OLMoE run and its train step, each counted apart and
 summed, are path dist; the two entry points' runs are paths launch-serve
 and launch-train). The script ends with the kernels JSON line
@@ -343,8 +358,13 @@ def _flash_case(dev, gen):
     worst = {}
     # TinyLlama's prefill (32 query heads on 4 KV heads of 64), with a
     # window and rows that see no key; OLMoE's (16 on 16 KV heads of 128)
+    # and gemma-7b's (16 on 16 KV heads of 256: TMA), and heads of 192 and
+    # 160 (R = 4 and 1: the cp.async path over 256 padded columns)
     for H, G, D, cases in ((32, 4, 64, ((200, 0), (512, 0), (512, 48))),
-                           (16, 16, 128, ((200, 0), (512, 0)))):
+                           (16, 16, 128, ((200, 0), (512, 0))),
+                           (16, 16, 256, ((200, 0), (512, 0), (512, 48))),
+                           (8, 2, 192, ((200, 0), (512, 0))),
+                           (4, 4, 160, ((300, 0),))):
         for dtype in (torch.bfloat16, torch.float32):
             for S, window in cases:
                 q = torch.randn(B, H, S, D, device=dev, generator=gen).to(dtype)
@@ -403,10 +423,15 @@ def _flash_case(dev, gen):
         # launch.train's 8 x 128 tokens in fp32
         "launch_serve": _flash_served(dev, gen, B, 32, 4, 64, 48),
         "launch_train": _flash_fp32(dev, gen, 8, 32, 4, 64, 128),
+        # gemma-7b's heads of 256: its served prefill (bf16, one warpgroup a
+        # block), and launch.train's 8 x 128 tokens in fp32 (the CUDA cores)
+        "gemma": _flash_served(dev, gen, B, 16, 16, 256, 512),
+        "gemma_f32": _flash_fp32(dev, gen, 8, 16, 16, 256, 128),
     }
     for name, o in (("olmoe", row["olmoe"]), ("vlm cross", row["vlm"]["cross"]),
                     ("vlm self", row["vlm"]["self"]), ("launch_serve", row["launch_serve"]),
-                    ("launch_train", row["launch_train"])):
+                    ("launch_train", row["launch_train"]), ("gemma", row["gemma"]),
+                    ("gemma_f32", row["gemma_f32"])):
         op = f" op_ms={o['op_ms']:.5f}" if "op_ms" in o else ""
         print(f"  flash_attention {name} {o['shape']}: ms={o['ms']:.5f}{op} "
               f"plain_ms={o['plain_ms']:.5f} sdpa_ms={o['library_ms']:.5f} "
@@ -540,9 +565,12 @@ def _decode_case(dev, gen):
     B, T = 1, 1024
     worst = {}
     # TinyLlama's decode (32 query heads on 4 KV heads of 64), then OLMoE's
-    # (16 on 16 KV heads of 128: one query head per KV head)
+    # (16 on 16 KV heads of 128: one query head per KV head), gemma-7b's
+    # (16 on 16 of 256), and R = 16, the most K2 takes past D = 128, at 192
     for H, G, D, kv_lens in ((32, 4, 64, (0, 1, 300, 1024)),
-                             (16, 16, 128, (0, 1, 300, 513, 544, 1024))):
+                             (16, 16, 128, (0, 1, 300, 513, 544, 1024)),
+                             (16, 16, 256, (0, 1, 300, 513, 544, 1024)),
+                             (16, 1, 192, (0, 37, 1024))):
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn(B, H, D, device=dev, generator=gen).to(dtype)
             k = torch.randn(B, G, T, D, device=dev, generator=gen).to(dtype)
@@ -609,9 +637,12 @@ def _decode_case(dev, gen):
                 "cross": _decode_served(dev, gen, B, 64, 8, 128, 576, 576)},
         # launch.serve's cache (max_len 256), at its last decode step
         "launch_serve": _decode_served(dev, gen, B, 32, 4, 64, 256, 53),
+        # gemma-7b's decode: 16 heads of 256 on 16 KV heads
+        "gemma": _decode_served(dev, gen, B, 16, 16, 256, T, 300),
     }
     for name, o in (("olmoe", row["olmoe"]), ("vlm self", row["vlm"]["self"]),
-                    ("vlm cross", row["vlm"]["cross"]), ("launch_serve", row["launch_serve"])):
+                    ("vlm cross", row["vlm"]["cross"]), ("launch_serve", row["launch_serve"]),
+                    ("gemma", row["gemma"])):
         print(f"  decode_attention {name} {o['shape']}: ms={o['ms']:.6f} "
               f"plain_ms={o['plain_ms']:.6f} sdpa_ms={o['library_ms']:.6f} "
               f"bound_ms={o['bound_ms']:.6f} (bytes)", flush=True)
@@ -1881,6 +1912,130 @@ def phase_serve_audio(dev):
     return counts, e
 
 
+def _host_memory():
+    """(GB the host has available, GB of pinned memory PyTorch's caching
+    host allocator holds, or None where this torch does not say)."""
+    avail = None
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                avail = int(line.split()[1]) * 1024 / 1e9
+    stats = getattr(torch.cuda.memory, "host_memory_stats", None)
+    held = None
+    if stats is not None:
+        held = stats().get("reserved_bytes.current", stats().get("allocated_bytes.current"))
+        held = None if held is None else held / 1e9
+    return avail, held
+
+
+def _release_pinned() -> bool:
+    """Return the pinned blocks the caching host allocator keeps after a
+    sleep to the host (each leaf's block is rounded up to a power of two
+    and kept for reuse): False where this torch has no call for it."""
+    fn = (getattr(torch._C, "_accelerator_emptyHostCache", None)
+          or getattr(torch._C, "_host_emptyCache", None))
+    if fn is not None:
+        fn()
+    return fn is not None
+
+
+def phase_serve_gemma(dev):
+    """gemma-7b at full width and depth (28 layers, d 3072, 16 heads of 256
+    on 16 KV heads, GeGLU d_ff 24576, vocab 256000, tied embedding; 17.08
+    GB, the embedding a 1.57 GB leaf): the round trip (K1 on the wake) and
+    the 4 requests of ``_serve`` through FunctionalServer, K3 28 times per
+    prefill at D = 256 and K2 28 times per decode step. Then, counted apart
+    as path ``serve-gemma:launch-serve``, the serving entry point
+    ``launch.serve.run`` with gemma's full config and the woken weights
+    (6 requests of 48 tokens, 6 new each, request 3 repeating request 0);
+    then, not counted, that run again with every K3/K2 call probed and
+    through the plain versions.
+
+    Gated, as serve-moe is: every K3 and K2 call of the first request's
+    prefill and 8 decode steps, and of the probed entry-point run, within
+    2e-2 of its plain version on the same inputs; the repeats hit the
+    prefix cache; the main path's checks. The logits against the plain path
+    and the plain path's greedy tokens are reported, and held (2e-2, equal
+    tokens) only where the model rounds alike: where the plain path given
+    1e-5 of relative noise in its attention output stays within 2e-2
+    (``logits_rel_err_plain_noise``). The pinned blocks the sleeps leave
+    are returned to the host before and after (``_release_pinned``)."""
+    import io
+
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.launch import serve
+
+    host_before = _host_memory()
+    released = _release_pinned()
+    token_probes, extra = {}, {}
+
+    def compare(params, toks, plain):
+        from repro_torch.configs import get_config
+
+        cfg = get_config("gemma-7b")
+        extra["noise"] = _plain_noise(params, cfg, toks)
+        reset_launch_counts()                    # --- the entry point's path
+        t0 = time.monotonic()
+        done, srv = serve.run(cfg, params=params, device=dev)
+        torch.cuda.synchronize()
+        run_s = time.monotonic() - t0
+        extra["counts"] = _counts()              # --- ends here
+        same_input = {}
+        with _probing(same_input), contextlib.redirect_stdout(io.StringIO()):
+            probed, _ = serve.run(cfg, params=params, device=dev)
+        with _plain_attention(), contextlib.redirect_stdout(io.StringIO()):
+            plain_run, _ = serve.run(cfg, params=params, device=dev)
+        tokens = [r.generated for r in done]
+        hits = [r.hit_tokens for r in done]
+        check(hits[3] > 0, f"launch.serve: no prefix hit on request 3 (hits {hits})")
+        check(all(len(t) == 6 and all(0 <= x < cfg.vocab for x in t) for t in tokens),
+              f"launch.serve: bad generations {tokens}")
+        check([r.generated for r in probed] == tokens,
+              "launch.serve: the probed run generated other tokens")
+        c = extra["counts"]
+        extra["launch_serve"] = dict(
+            entry="repro_torch.launch.serve.run", requests=len(done), hit_tokens=hits,
+            ttft_ms=[r.ttft * 1e3 for r in done], serve_s=run_s,
+            tokens_per_s=sum(len(t) for t in tokens) / run_s,
+            tokens_equal_plain=[r.generated for r in plain_run] == tokens,
+            **_same_input_fields(same_input, c["flash_attention"], c["decode_attention"]),
+            launches=c)
+        extra["plain_first_token"] = int(torch.argmax(plain[0]))
+        return {"logits_rel_err_plain_noise": extra["noise"]}
+
+    cfg, reqs, counts, fields = _serve(
+        dev, "gemma-7b", _plain_attention,
+        ("relay_assemble", "flash_attention", "decode_attention"),
+        decode_from_plain_prefill=False, compare=compare,
+        kernel_path=lambda: _probing(token_probes), gate_logits=False)
+    check(cfg.hd == 256 and cfg.n_layers == 28 and cfg.d_model == 3072,
+          f"gemma-7b is {cfg.n_layers} x {cfg.d_model} with heads of {cfg.hd}")
+    fields.update(_same_input_fields(token_probes, cfg.n_layers, 8 * cfg.n_layers))
+    new_tokens = sum(len(r.generated) - 1 for r in reqs)
+    check(counts["flash_attention"] == cfg.n_layers * len(reqs)
+          and counts["decode_attention"] == cfg.n_layers * new_tokens
+          and counts["ssd_chunk"] == 0,
+          f"K3 launched {counts['flash_attention']} times and K2 {counts['decode_attention']}: "
+          f"want {cfg.n_layers} per prefill and per decode step")
+    e = extra["counts"]
+    check(e["flash_attention"] == 6 * cfg.n_layers and e["decode_attention"] == 30 * cfg.n_layers,
+          f"launch.serve launched K3 {e['flash_attention']} and K2 {e['decode_attention']} "
+          f"times: want {6 * cfg.n_layers} and {30 * cfg.n_layers}")
+    round_alike = max(extra["noise"]["1e-05"]) <= 2e-2
+    fields.update(logits_round_alike=round_alike, launch_serve=extra["launch_serve"],
+                  first_token_equal_plain=extra["plain_first_token"] == reqs[0].generated[0])
+    if round_alike:
+        check(fields["logits_rel_err"] <= 2e-2 and fields["decode_logits_rel_err"] <= 2e-2,
+              f"gemma-7b's logits differ from the plain path: prefill "
+              f"{fields['logits_rel_err']:.3e}, decode {fields['decode_logits_rel_err']:.3e}")
+        check(fields["first_token_equal_plain"] and extra["launch_serve"]["tokens_equal_plain"],
+              "the plain path's greedy tokens differ")
+    fields.update(host_GB_before=host_before, host_GB_after=_host_memory(),
+                  pinned_released=released and _release_pinned())
+    report("serve-gemma", **fields)
+    return counts, e
+
+
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def _probing_k3_grad(forward_errs, backward_errs):
@@ -2250,35 +2405,53 @@ def phase_launch_train(dev):
     return counts
 
 
+DRYRUNS = {          # name: (arch, extra arguments, the meshes' rank counts)
+    "tinyllama-1.1b": ("tinyllama-1.1b", ["--both-meshes"], [256, 512]),
+    "gemma-7b": ("gemma-7b", ["--both-meshes"], [256, 512]),
+    "tinyllama-1.1b:kv_seq_shard": ("tinyllama-1.1b", ["--opt", "kv_seq_shard"], [256]),
+}
+
+
 def phase_dryrun():
-    """``python -m repro_torch.launch.dryrun --arch tinyllama-1.1b --shape
-    decode_32k --both-meshes`` in a process of its own with the card hidden
-    (a fake world of 256, then 512 ranks; the step on the meta device):
-    both combos ok with 256 and 512 ranks. Prints the per-device counts and
-    the roofline terms from the H100's constants."""
+    """``python -m repro_torch.launch.dryrun --shape decode_32k`` for
+    tinyllama-1.1b and gemma-7b (16 heads of 256) on 16 x 16 and 2 x 16 x
+    16, and tinyllama-1.1b with ``--opt kv_seq_shard`` on 16 x 16 (its 4
+    KV heads do not divide the model axis, so the caches' positions go
+    there), each in a process of its own with the card hidden (a fake world
+    of 256 or 512 ranks; the step on the meta device), the three at once:
+    every combo ok. Prints the per-device counts and the roofline terms
+    from the H100's constants."""
     import os
     import tempfile
 
-    with tempfile.TemporaryDirectory() as tmp:
-        out = Path(tmp) / "dryrun.jsonl"
-        env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "tinyllama-1.1b",
-             "--shape", "decode_32k", "--both-meshes", "--out", str(out)],
-            env=env, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        run_s = time.monotonic() - t0
-        check(proc.returncode == 0,
-              f"the dry-run failed ({proc.returncode}): {proc.stdout[-2000:]}"
-              f"{proc.stderr[-2000:]}")
-        results = [json.loads(l) for l in out.read_text().splitlines()]
-    check([(r["ok"], r.get("n_chips")) for r in results] == [(True, 256), (True, 512)],
-          f"dry-run combos: {results}")
-    keys = ("mesh", "n_chips", "flops_per_device", "hbm_bytes_per_device",
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    keys = ("mesh", "n_chips", "opt", "flops_per_device", "hbm_bytes_per_device",
             "collective_bytes_per_device", "collective_counts", "compute_s", "memory_s",
             "collective_s", "dominant", "flops_ratio", "memory_analysis")
-    report("dryrun", arch="tinyllama-1.1b", shape="decode_32k", torch=torch.__version__,
-           run_s=run_s, combos=[{k: r[k] for k in keys} for r in results])
+    fields = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        procs = {name: subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", "decode_32k", *args, "--out", str(Path(tmp) / f"{i}.jsonl")],
+            env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for i, (name, (arch, args, _)) in enumerate(DRYRUNS.items())}
+        try:
+            outs = {name: p.communicate(timeout=600) for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+        run_s = time.monotonic() - t0
+        for i, (name, (arch, _, ranks)) in enumerate(DRYRUNS.items()):
+            p = procs[name]
+            check(p.returncode == 0, f"the dry-run of {name} failed ({p.returncode}): "
+                  f"{outs[name][0][-2000:]}{outs[name][1][-2000:]}")
+            results = [json.loads(l) for l in (Path(tmp) / f"{i}.jsonl").read_text().splitlines()]
+            check([(r["ok"], r.get("n_chips")) for r in results] == [(True, n) for n in ranks],
+                  f"dry-run combos of {name}: {results}")
+            fields[name] = [{k: r[k] for k in keys} for r in results]
+    report("dryrun", shape="decode_32k", torch=torch.__version__, run_s=run_s, combos=fields)
 
 
 # ---------------------------------------------------------------------------
@@ -2314,6 +2487,8 @@ def main(argv=None) -> int:
             ("serve-vlm", lambda: counts.update({"serve-vlm": phase_serve_vlm(dev)})),
             ("serve-audio", lambda: counts.update(zip(
                 ("serve-audio", "serve-audio:inputs_embeds"), phase_serve_audio(dev)))),
+            ("serve-gemma", lambda: counts.update(zip(
+                ("serve-gemma", "serve-gemma:launch-serve"), phase_serve_gemma(dev)))),
             ("train", lambda: counts.update(train=phase_train(dev))),
             ("launch-serve", lambda: counts.update({"launch-serve": phase_launch_serve(dev)})),
             ("launch-train", lambda: counts.update({"launch-train": phase_launch_train(dev)})),

@@ -20,6 +20,7 @@ constexpr float kNegInf = -1e30f;  // the JAX kernels' NEG_INF
 constexpr int kTileK = 32;         // keys per tile: one per lane
 constexpr int kWarps = 8;          // warps per block
 constexpr int kThreads = kWarps * 32;
+constexpr int kMaxHeadDim = 256;   // D the kernels take (gemma's 256 is the widest)
 
 // Row strides, in floats, of the staged q rows and K keys. q rows are
 // padded with zeros to a multiple of 8 floats, so float4 reads cover them;
@@ -91,23 +92,32 @@ __device__ __forceinline__ void load_kv_tile(float* ks, float* vs, const T* k, c
 
 constexpr int kMaxChunks = 4;  // 16-byte chunks of K (and V) per thread: fp32 D = 128
 
-// One step's keys of K and V (up to kMaxChunks 16-byte chunks per thread)
-// in registers: where D and the row strides are whole 16-byte chunks and
+// Chunks per thread that hold one 32-key tile of D <= 32 * DPL elements of
+// T: kMaxChunks up to D = 128 (K2 fills them with up to 4 tiles of a
+// narrower D), and more for an fp32 tile past it (8 at D = 256).
+template <typename T, int DPL>
+__host__ __device__ constexpr int tile_chunks() {
+  return DPL * (int)sizeof(T) / 4 > kMaxChunks ? DPL * (int)sizeof(T) / 4 : kMaxChunks;
+}
+
+// One step's keys of K and V (up to NC 16-byte chunks per thread) in
+// registers: where D and the row strides are whole 16-byte chunks and
 // the bases 16-byte aligned, the fast way to stage keys, and split in two
 // so that a kernel can keep the next keys' loads in flight while it uses
 // the current ones.
+template <int NC>
 struct TileRegs {
-  uint4 k[kMaxChunks], v[kMaxChunks];
+  uint4 k[NC], v[NC];
 };
 
-template <typename T>
-__device__ __forceinline__ void fetch_tile(TileRegs& t, const T* kb, const T* vb,
+template <typename T, int NC>
+__device__ __forceinline__ void fetch_tile(TileRegs<NC>& t, const T* kb, const T* vb,
                                            long long kst, long long vst, int k0, int k_stop,
                                            int D, int n_keys) {
   constexpr int kVec = 16 / sizeof(T);
   const int cpr = D / kVec;  // chunks per key row
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
+  for (int c = 0; c < NC; ++c) {
     const int idx = threadIdx.x + c * kThreads;
     const int j = idx / cpr;
     const int d0 = (idx - j * cpr) * kVec;
@@ -121,13 +131,13 @@ __device__ __forceinline__ void fetch_tile(TileRegs& t, const T* kb, const T* vb
 
 // The keys as fp32 in shared memory, laid out as load_kv_tile lays out a
 // tile (so key group g's tile starts at key 32 g).
-template <typename T>
-__device__ __forceinline__ void store_tile(const TileRegs& t, float* ks, float* vs, int D,
+template <typename T, int NC>
+__device__ __forceinline__ void store_tile(const TileRegs<NC>& t, float* ks, float* vs, int D,
                                            int n_keys) {
   constexpr int kVec = 16 / sizeof(T);
   const int cpr = D / kVec;
 #pragma unroll
-  for (int c = 0; c < kMaxChunks; ++c) {
+  for (int c = 0; c < NC; ++c) {
     const int idx = threadIdx.x + c * kThreads;
     if (idx >= n_keys * cpr) continue;
     const int j = idx / cpr;

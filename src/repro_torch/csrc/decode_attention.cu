@@ -39,6 +39,13 @@
 // V over the whole cache [0, T) (softmax over uniform -1e30 scores). Any T
 // works; kv_len comes per sequence from a device array, or as one value
 // for every sequence.
+//
+// D runs up to 256 (gemma): a lane keeps up to 8 output dims of each row.
+// R is at most 32 up to D = 128 and 16 past it, which keeps both the
+// staged q rows and rank 0's partials in shared memory (216 KB at R = 16,
+// D = 256, 8 blocks a cluster). Past D = 128 one 32-key tile fills the
+// register staging (fp32 takes twice the chunks a thread of bf16 does), so
+// a block works on one tile a step.
 #include <cooperative_groups.h>
 #include <cstdint>
 
@@ -50,11 +57,17 @@ namespace {
 
 using namespace repro;
 
-constexpr int kMaxGroup = 32;       // R <= kWarps * 4
+constexpr int kMaxGroup = 32;       // R <= kWarps * 4 up to D = 128
+constexpr int kMaxGroupWide = 16;   // R past D = 128, up to kMaxHeadDim
 constexpr int kMaxCluster = 8;      // blocks per cluster, the portable limit
 
 constexpr int kMaxKeyGroups = 4;    // 32-key tiles a block works on at once
-constexpr int kMaxQPerThread = kMaxGroup * 128 / kThreads;  // staged q floats per thread
+// Staged q floats per thread: R rows of q_stride(D) floats, at most
+// 32 x 128 or 16 x 256 (the two bounds on R above give the same 4096).
+// R = 32 at D = 256 would also need rank 0's 8 x 32 partials of 256 floats,
+// 264 KB, past the 227 KB a block may have.
+constexpr int kMaxQPerThread = kMaxGroup * 128 / kThreads;
+static_assert(kMaxGroupWide * kMaxHeadDim == kMaxGroup * 128, "q staging bound");
 
 __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -115,7 +128,7 @@ decode_cluster_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < NR; ++i) row_init(st[i]);
 
   if (s_begin < s_end) {  // uniform over the block
-    TileRegs next;        // the first step's loads go out with q's
+    TileRegs<tile_chunks<T, DPL>()> next;   // the first step's loads go out with q's
     if (vec) fetch_tile(next, kb, vb, kst, vst, s_begin, s_end, D, step);
     // q rows (zero in the padded rows and columns): all loads first, then
     // the stores, so the loads are in flight together; and K's pad columns.
@@ -223,7 +236,7 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len_ptr,
   // As many key groups as the warps, the register staging and the cap allow.
   const int cpr = (D * (int)sizeof(T) + 15) / 16;
   int KG = kWarps / wpg < kMaxKeyGroups ? kWarps / wpg : kMaxKeyGroups;
-  while (KG > 1 && KG * kTileK * cpr > kMaxChunks * kThreads) --KG;
+  while (KG > 1 && KG * kTileK * cpr > tile_chunks<T, DPL>() * kThreads) --KG;
   const size_t smem = sizeof(float) * (size_t)(wpg * NR * q_stride(D) +
                                                KG * kTileK * (k_stride(D) + D) +
                                                kThreads * NR + C * KG * R * (2 + D));
@@ -258,7 +271,7 @@ int dispatch(const void* q, const void* k, const void* v, const void* kv_len_ptr
   const int vec = D % kVec == 0 && ((uintptr_t)k & 15) == 0 && ((uintptr_t)v & 15) == 0 &&
                   s[3] % kVec == 0 && s[2] % kVec == 0 && s[4] % kVec == 0 &&
                   s[6] % kVec == 0 && s[5] % kVec == 0 && s[7] % kVec == 0;
-  if (H / G > 16) {
+  if (H / G > 16) {  // D <= 128 here (the entry point refuses R > 16 past it)
     switch ((D + 31) / 32) {
       case 1: return launch<T, 1, 4>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
       case 2: return launch<T, 2, 4>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
@@ -272,6 +285,10 @@ int dispatch(const void* q, const void* k, const void* v, const void* kv_len_ptr
     case 2: return launch<T, 2, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
     case 3: return launch<T, 3, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
     case 4: return launch<T, 4, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+    case 5: return launch<T, 5, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+    case 6: return launch<T, 6, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+    case 7: return launch<T, 7, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
+    case 8: return launch<T, 8, 2>(q, k, v, kv_len_ptr, kv_len_val, o, B, H, G, Tk, D, s, C, scale, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -292,7 +309,8 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
                                        void* stream) {
   const long long s[10] = {qsb, qsh, ksb, kst, ksg, vsb, vst, vsg, osb, osh};
   cudaStream_t st = (cudaStream_t)stream;
-  if (cluster < 1 || cluster > kMaxCluster || G < 1 || H % G || H / G > kMaxGroup)
+  if (cluster < 1 || cluster > kMaxCluster || G < 1 || H % G || D < 1 || D > kMaxHeadDim ||
+      H / G > (D > 128 ? kMaxGroupWide : kMaxGroup))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return dispatch<float>(q, k, v, kv_len, kv_len_val, o, B, H, G, Tk, D, s, cluster, scale, st);

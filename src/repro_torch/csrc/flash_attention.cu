@@ -15,7 +15,8 @@
 // and keeping several warpgroups in flight.
 //
 // Design (bf16, the served path): a block owns one 64-row q tile of one
-// head (64 rows is what a wgmma takes) and W warpgroups (W = 2) that split
+// head (64 rows is what a wgmma takes) and W warpgroups (W = 2 up to
+// D = 128) that split
 // its key tiles between them: tile j goes to warpgroup j % W, which halves
 // the longest block's chain of key tiles (the last q tile has 8 at S = 512)
 // and puts two warpgroups' latencies side by side. The TPU's sequential KV
@@ -26,7 +27,7 @@
 // current one. TMA writes the 128-byte swizzle that the wgmma descriptors
 // name, as 64-column blocks; where D is not a multiple of 64, or the
 // strides do not suit TMA, 16-byte cp.async copies write the same layout
-// (D zero-padded to 64 or 128). S = Q K^T is wgmma m64n64k16 with both
+// (D zero-padded to 64, 128 or 256). S = Q K^T is wgmma m64n64k16 with both
 // operands in shared memory (K-major); the online softmax (max, exp2, row
 // sum, rescale) runs in fp32 registers on the accumulator's layout, which
 // is also the layout of wgmma's register A operand, and O += P V is wgmma
@@ -42,6 +43,19 @@
 // in the JAX kernel; a row that sees no key (a causal position past T with
 // a window, or before 0 through a negative offset) gets what the plain
 // version gives it, the mean of V over [0, T).
+//
+// At D = 256 (gemma) the block is one warpgroup (W = 1) with the same
+// two-slot ring: Q and two (K, V) slots of 64 x 256 bf16 are 5 x 32 KB
+// (164 KB with the alignment pad), where two warpgroups' rings would need
+// 289 KB of the 227 KB a block may have. O += P V is one m64n256k16 per
+// k-step, and O takes 128 fp32 registers a thread beside S's 32 and P's
+// 32; a block of 128 threads may use 255. Of the three layouts that fit
+// (this one; two warpgroups with one slot each; two warpgroups splitting
+// O's columns over a shared P), this is the one that changes nothing but
+// the instance: the copy of a tile still runs under the products on the
+// one before, and no hand-off is added. Its cost is a chain of up to 8
+// key tiles in the last q tile at S = 512 where W = 2 halves it; with
+// 164 KB a block, one block runs on an SM either way.
 //
 // fp32 inputs take the CUDA-core kernel below (fp32 scores from the loaded
 // values, 32-key tiles, one key per lane): TF32 would keep ~3 digits and
@@ -114,7 +128,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int k0 = k_begin; k0 < k_end; k0 += kTileK) {
     __syncthreads();  // the previous tile (and, first time, q) is consumed/ready
     if (vec) {
-      TileRegs t;
+      TileRegs<tile_chunks<float, DPL>()> t;
       fetch_tile(t, kb, vb, kst, vst, k0, Tk, D, kTileK);
       store_tile<float>(t, ks, vs, D, kTileK);
     } else {
@@ -182,6 +196,10 @@ int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, in
     case 2: return launch_f32<2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
     case 3: return launch_f32<3>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
     case 4: return launch_f32<4>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 5: return launch_f32<5>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 6: return launch_f32<6>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 7: return launch_f32<7>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 8: return launch_f32<8>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -531,7 +549,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       void* stream) {
   const long long s[12] = {qsb, qss, qsh, ksb, kst, ksg, vsb, vst, vsg, osb, oss, osh};
   cudaStream_t st = (cudaStream_t)stream;
-  if (B <= 0 || H <= 0 || G <= 0 || H % G || D <= 0 || D > 128)
+  if (B <= 0 || H <= 0 || G <= 0 || H % G || D <= 0 || D > kMaxHeadDim)
     return (int)cudaErrorInvalidValue;
   // 16-byte staging (and paired stores of O) needs D and every row stride
   // in whole 16-byte chunks (8 bf16, 4 fp32) and 16-byte aligned bases.
@@ -545,6 +563,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   if (D <= 64)
     return launch_bf16<64, 2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
                               scale, vec, st);
-  return launch_bf16<128, 2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
+  if (D <= 128)
+    return launch_bf16<128, 2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
+                               scale, vec, st);
+  return launch_bf16<256, 1>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
                              scale, vec, st);
 }

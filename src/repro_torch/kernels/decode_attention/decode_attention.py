@@ -17,11 +17,13 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from .. import build
-from ..flash_attention.flash_attention import DTYPES, check_inputs
+from ..flash_attention.flash_attention import DTYPES, check_head_dim, check_inputs
 from .ref import decode_attention_ref
 
 TILE_K = 32              # keys per tile in the kernel
-MAX_GROUP = 32           # R = H / G the kernel takes (8 warps x 4 rows)
+MAX_GROUP = 32           # R = H / G the kernel takes up to D = 128 (8 warps x 4 rows)
+MAX_GROUP_WIDE = 16      # R it takes past D = 128: the staged q rows and the
+                         # cluster's partials must fit in shared memory
 MAX_CLUSTER = 8          # blocks per cluster, the portable limit
 
 
@@ -47,6 +49,11 @@ def split_range(rank: int, cluster: int, kv_len: int) -> Tuple[int, int]:
     split = math.ceil(math.ceil(kv_len / cluster) / TILE_K) * TILE_K
     begin = rank * split
     return begin, min(begin + split, kv_len)
+
+
+def max_group(D: int) -> int:
+    """The largest R = H / G the kernel takes at head width D."""
+    return MAX_GROUP if D <= 128 else MAX_GROUP_WIDE
 
 
 def check_kv_len(kv_len: Union[int, torch.Tensor], B: int) -> None:
@@ -76,8 +83,10 @@ def launch(q, k, v, kv_len: Union[int, torch.Tensor], out, dims: Sequence[int],
     build.refuse_grad("decode_attention", q, k, v,
                       why="K2 serves decode only, which takes no gradient")
     B, H, G, T, D = dims
-    if H // G > MAX_GROUP:
-        raise ValueError(f"decode_attention: H/G = {H // G} > {MAX_GROUP}")
+    check_head_dim("decode_attention", D)
+    if H // G > max_group(D):
+        raise ValueError(f"decode_attention: the CUDA kernel takes H/G <= {max_group(D)} "
+                         f"at D = {D}, got {H // G}")
     lens, value = kv_len_arg(kv_len, B, q.device)
     if out.numel() == 0 or T == 0:
         return

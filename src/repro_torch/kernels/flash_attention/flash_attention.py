@@ -14,7 +14,7 @@ from .. import build
 from .ref import flash_attention_ref
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256       # D the CUDA kernels take; the plain versions take any
 TILE_Q = 64              # q rows per block of the bf16 (tensor-core) kernel
 
 
@@ -31,8 +31,9 @@ def block_order(n_qt: int, H: int, B: int) -> List[Tuple[int, int, int]]:
 
 
 def check_inputs(name: str, q, k, v, dims) -> None:
-    """Shared device / dtype / shape / contiguity checks of K2 and K3.
-    ``dims`` = (B, H, G, D) as read from the caller's layout."""
+    """Shared device / dtype / shape / contiguity checks of K2 and K3, on
+    every device. ``dims`` = (B, H, G, D) as read from the caller's
+    layout. What only the CUDA kernels refuse is ``check_head_dim``'s."""
     B, H, G, D = dims
     tensors = (q, k, v)
     if any(t.device != q.device for t in tensors):
@@ -46,13 +47,17 @@ def check_inputs(name: str, q, k, v, dims) -> None:
         )
     if k.shape != v.shape:
         raise ValueError(f"{name}: k {tuple(k.shape)} != v {tuple(v.shape)}")
-    if G < 1 or H % G or not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"{name}: need H % G == 0 and 1 <= D <= {MAX_HEAD_DIM}, got "
-            f"H={H} G={G} D={D}"
-        )
+    if G < 1 or H % G or D < 1:
+        raise ValueError(f"{name}: need H % G == 0 and D >= 1, got H={H} G={G} D={D}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: q, k, v must be contiguous")
+
+
+def check_head_dim(name: str, D: int) -> None:
+    """The head widths the CUDA kernels of K2 and K3 take (the plain
+    versions, on the CPU and meta devices, take any)."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: the CUDA kernel takes 1 <= D <= {MAX_HEAD_DIM}, got D={D}")
 
 
 def launch(q, k, v, out, dims: Sequence[int], strides: Sequence[int], *,
@@ -62,6 +67,7 @@ def launch(q, k, v, out, dims: Sequence[int], strides: Sequence[int], *,
     build.refuse_grad("flash_attention", q, k, v,
                       why="call flash_attention_op, whose FlashAttentionFn carries it")
     B, H, G, Sq, T, D = dims
+    check_head_dim("flash_attention", D)
     if out.numel() == 0:
         return
     with torch.cuda.device(q.device):

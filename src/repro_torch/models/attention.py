@@ -13,8 +13,9 @@ any kernel.
 Under a mesh (``layers.use_mesh``) q, k and v carry the JAX package's
 ``shard`` constraints (heads over ``model`` where they divide it, batch
 over the data axes), the KV caches the layout of ``kv_cache_spec`` (JAX's
-``shard_kv_cache``), and
-each kernel call runs through ``shard_map`` on each rank's local heads
+``cache_pspec``: with kv_seq_shard, where the KV heads do not divide the
+``model`` axis, the positions are split over it instead), and each kernel
+call runs through ``shard_map`` on each rank's local heads
 (``_per_head``), attention being independent per head.
 """
 from __future__ import annotations
@@ -28,6 +29,8 @@ from ..kernels.flash_attention.ops import flash_attention_op
 from .layers import (
     BATCH,
     MODEL,
+    all_gather,
+    axis_index,
     mesh_axis_sizes,
     model_rank,
     pspec,
@@ -40,32 +43,36 @@ from .layers import (
 
 def kv_cache_spec(shape):
     """The spec of a KV cache (B, T, G, D) (or one with leading axes) under
-    the active mesh: heads over ``model`` when divisible; otherwise the
-    sequence axis goes there when the kv_seq_shard option is on (it must
-    agree with distributed.sharding.cache_pspec)."""
+    the active mesh, as distributed.sharding.cache_pspec lays it out:
+    heads over ``model`` when they divide it; otherwise, with the
+    kv_seq_shard option on, the sequence axis over ``model`` (the batch
+    over the batch axes), or over ("data", "model") where the batch axes do
+    not divide B."""
     from ..distributed.sharding import OPT
 
     lead = (None,) * (len(shape) - 4)
     m = mesh_axis_sizes().get(MODEL, 1)
     if m > 1 and shape[-2] % m != 0 and OPT["kv_seq_shard"]:
-        return pspec(*lead, BATCH, MODEL, None, None, dims=shape)
+        if pspec(BATCH, dims=shape[-4:-3])[0] is not None:
+            return pspec(*lead, BATCH, MODEL, None, None, dims=shape)
+        return pspec(*lead, None, ("data", MODEL), None, None, dims=shape)
     return pspec(*lead, BATCH, None, MODEL, None, dims=shape)
 
 
-def _refuse_sequence_sharded(*specs) -> None:
-    """A cache whose sequence axis is sharded (``kv_seq_shard``) would have
-    each rank write and read its own positions as if they were all; that
-    layout is not ported."""
-    if any(s[-3] is not None for s in specs):
-        raise NotImplementedError(
-            "a sequence-sharded KV cache (OPT['kv_seq_shard'] under a mesh whose "
-            "model axis the KV heads do not divide) is not ported")
+def kv_seq_axes(spec) -> Tuple[str, ...]:
+    """The mesh axes a KV cache spec splits the sequence axis over, major
+    first (none unless kv_seq_shard put it there): each rank holds block
+    ``axis_index(*axes)`` of the positions."""
+    e = spec[-3]
+    return () if e is None else (e,) if isinstance(e, str) else tuple(e)
 
 
 def _per_head(fn, q, k, v, *caches):
-    """``fn(q, k, v, *caches, kv_heads)`` on each rank's local heads: q as
-    ``shard(q, BATCH, None, MODEL, None)`` lays it out, k, v and the caches
-    (B, T, G, D) as ``kv_cache_spec``. ``kv_heads`` maps a local (B, T, G,
+    """``fn(q, k, v, *caches, kv_heads)`` on each rank's local heads: q, k
+    and v as ``shard(x, BATCH, None, MODEL, None)`` lays them out (every
+    key position on every rank), the caches (B, T, G, D) as
+    ``kv_cache_spec`` (a block of the positions where kv_seq_shard splits
+    them). ``kv_heads`` maps a local (B, T, G,
     D) tensor to the KV heads of the local q heads: where q's heads are
     split over ``model`` and the G KV heads are not (G % m != 0), a rank's
     q heads [r*H/m, (r+1)*H/m) belong to KV heads [r*H/m // R, ...]
@@ -73,7 +80,7 @@ def _per_head(fn, q, k, v, *caches):
     elsewhere it is the identity."""
     H, G = q.shape[2], k.shape[2]
     q_spec = pspec(BATCH, None, MODEL, None, dims=q.shape)
-    kv_spec = kv_cache_spec(k.shape)
+    kv_spec = pspec(BATCH, None, MODEL, None, dims=k.shape)
 
     def local(ql, kl, vl, *cl):
         kv_heads = _identity
@@ -90,7 +97,6 @@ def _per_head(fn, q, k, v, *caches):
         return fn(ql, kl, vl, *cl, kv_heads)
 
     cache_specs = tuple(kv_cache_spec(c.shape) for c in caches)
-    _refuse_sequence_sharded(*cache_specs)
     return shard_map(local, (q_spec, kv_spec, kv_spec) + cache_specs, q_spec,
                      q, k, v, *caches)
 
@@ -175,7 +181,10 @@ def decode_self_attention(
     is valid: the JAX mask keeps the same set, and softmax does not depend
     on the ring's order. Under a mesh the caches must already have the
     layout of ``kv_cache_spec`` (``transformer.run_blocks`` sees to it), so
-    the write lands in each rank's local block."""
+    the write lands in each rank's local block. Where kv_seq_shard splits
+    the positions, only the rank whose block holds the slot writes, and the
+    blocks are gathered over the sequence axes for K2 (every rank then
+    attends over the whole valid cache of its local heads)."""
     W = cache["k"].shape[1]
     q, k_new, v_new = qkv_proj(params, x, cfg)
     pos = torch.full((1,), cache_len, dtype=torch.int64, device=x.device)
@@ -183,10 +192,14 @@ def decode_self_attention(
     k_new = rope(k_new, pos, cfg.rope_theta)
     slot = cache_len % W if window else cache_len
     kv_len = min(cache_len + 1, W)
+    seq = kv_seq_axes(kv_cache_spec(cache["k"].shape))
 
     def write_and_attend(ql, kn, vn, kc, vc, kv):
-        kc[:, slot] = kn[:, 0].to(kc.dtype)
-        vc[:, slot] = vn[:, 0].to(vc.dtype)
+        at = slot - axis_index(*seq) * kc.shape[1]     # the slot in this rank's positions
+        if 0 <= at < kc.shape[1]:
+            kc[:, at] = kn[:, 0].to(kc.dtype)
+            vc[:, at] = vn[:, 0].to(vc.dtype)
+        kc, vc = all_gather(kc, 1, *seq), all_gather(vc, 1, *seq)
         return decode_attention_op(ql, kv(kc), kv(vc), kv_len)
 
     o = _per_head(write_and_attend, q, k_new, v_new, cache["k"], cache["v"])

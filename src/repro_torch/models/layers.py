@@ -157,6 +157,32 @@ def model_rank() -> int:
     return mesh.get_local_rank(MODEL)
 
 
+def axis_index(*axes: str) -> int:
+    """This rank's block index over the active mesh's ``axes`` taken
+    together, the first the major one (JAX's ``axis_index`` of a tuple of
+    axes); 0 for no axes."""
+    mesh = _current_mesh()
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.size(mesh.mesh_dim_names.index(a)) + mesh.get_local_rank(a)
+    return idx
+
+
+def all_gather(x: torch.Tensor, dim: int, *axes: str) -> torch.Tensor:
+    """Inside ``shard_map``: the blocks of ``x`` along ``dim`` from every
+    rank over the active mesh's ``axes``, in ``axis_index`` order (JAX's
+    tiled ``all_gather``); ``x`` itself for no axes. Gathers over the minor
+    axis first, whose blocks are neighbours."""
+    mesh = _current_mesh()
+    for a in reversed(axes):
+        group = mesh.get_group(a)
+        rows = x.movedim(dim, 0).contiguous()
+        out = rows.new_empty((dist.get_world_size(group) * rows.shape[0],) + rows.shape[1:])
+        dist.all_gather_into_tensor(out, rows, group=group)
+        x = out.movedim(0, dim).contiguous()
+    return x
+
+
 class _ReplicatedSum(torch.autograd.Function):
     """JAX's ``psum`` whose result every rank then uses alike: the forward
     sums over the process groups; the backward passes the cotangent

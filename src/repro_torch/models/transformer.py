@@ -33,16 +33,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .attention import (
-    _refuse_sequence_sharded,
     cross_attention,
     decode_self_attention,
     init_kv_cache,
     kv_cache_spec,
+    kv_seq_axes,
     self_attention,
 )
 from .layers import (
     BATCH,
+    MODEL,
     _current_mesh,
+    axis_index,
     lay_out,
     mlp_forward,
     pspec,
@@ -98,18 +100,23 @@ def init_caches(cfg, batch: int, max_len: int, window: int = 0,
 def _write_prefix(c: torch.Tensor, fresh: torch.Tensor, window: int) -> None:
     """Write prefix KV into cache ``c`` in place. For a ring buffer
     (window mode) only the last W positions survive, placed at slot =
-    position % W so decode continues seamlessly."""
+    position % W so decode continues seamlessly. Where kv_seq_shard splits
+    the cache's positions, each rank writes its block of them."""
+    W = c.shape[1]
+    spec = kv_cache_spec(c.shape)
+    seq = kv_seq_axes(spec)
+
     def write(cl, fl):
         fl = fl.to(cl.dtype)
-        S, W = fl.shape[1], cl.shape[1]
+        S = fl.shape[1]
         if window and S >= W:
-            cl.copy_(torch.roll(fl[:, S - W:], S % W, dims=1))
-        else:
-            cl[:, :S] = fl
+            fl = torch.roll(fl[:, S - W:], S % W, dims=1)
+        lo = axis_index(*seq) * cl.shape[1]
+        part = fl[:, lo:lo + cl.shape[1]]
+        cl[:, :part.shape[1]] = part
 
-    spec = kv_cache_spec(c.shape)
-    _refuse_sequence_sharded(spec)
-    shard_map(write, (spec, spec), None, c, fresh)
+    shard_map(write, (spec, pspec(BATCH, None, MODEL, None, dims=fresh.shape)), None,
+              c, fresh)
 
 
 def _ssm_mixer(p: Dict, h: torch.Tensor, cfg, mode: str, cache: Optional[Dict]):

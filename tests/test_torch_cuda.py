@@ -86,6 +86,16 @@ def _close(out, ref, dtype):
     (1, 16, 16, 512, 512, 128, 0, 0),     # OLMoE's prefill: MHA, D = 128
     (1, 16, 16, 200, 200, 128, 0, 0),     # OLMoE, a ragged q and key tile
     (1, 64, 8, 512, 512, 128, 0, 0),      # the VLM's self-attention: R = 8, D = 128
+    # heads past 128: one warpgroup over 256 padded columns, by TMA where
+    # D % 64 == 0 and by cp.async otherwise (250: element by element)
+    (1, 16, 16, 512, 512, 256, 0, 0),     # gemma-7b's prefill: MHA, D = 256
+    (2, 4, 4, 1000, 1000, 256, 0, 0),     # 16 key tiles: the ring wraps
+    (1, 16, 16, 200, 200, 256, 48, 0),    # a window, ragged q and key tiles
+    (1, 8, 2, 64, 576, 256, 0, 512),      # a chunk of a chunked prefill, R = 4
+    (1, 8, 2, 200, 200, 192, 0, 0),       # D = 192, R = 4
+    (1, 4, 4, 300, 300, 160, 0, 0),       # D = 160
+    (1, 4, 2, 100, 100, 200, 8, 0),       # D = 200, a window
+    (1, 4, 1, 40, 64, 250, 16, 48),       # D = 250; rows with no key
 ])
 def test_flash_matches_plain(dev, dtype, B, H, G, Sq, T, D, window, q_offset):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -103,6 +113,9 @@ def test_flash_matches_plain(dev, dtype, B, H, G, Sq, T, D, window, q_offset):
     (1, 64, 8, 512, 576, 128),            # the VLM's cross-attention prefill: 9 key tiles
     (1, 64, 8, 1, 576, 128),              # one query row
     (1, 8, 2, 200, 100, 64),              # a ragged frontend: a last key tile of 36
+    (1, 16, 16, 512, 576, 256),           # heads of 256: 9 key tiles, TMA
+    (1, 16, 16, 1, 576, 256),
+    (1, 8, 2, 200, 100, 192),             # heads of 192: cp.async
 ])
 def test_flash_without_causal_mask_matches_plain(dev, dtype, B, H, G, Sq, T, D):
     """K3 with causal=False (cross-attention: every query sees all T keys,
@@ -136,6 +149,14 @@ def test_flash_without_causal_mask_matches_plain(dev, dtype, B, H, G, Sq, T, D):
     (16, 16, 1024, 128, 544),           # OLMoE, one length passed by value
     (64, 8, 1024, 128, (300, 513)),     # the VLM's self-attention: R = 8, D = 128
     (64, 8, 576, 128, 576),             # its cross-attention: every frontend key valid
+    (16, 16, 1024, 256, (300, 1024)),   # gemma-7b's decode: R = 1, D = 256
+    (16, 16, 1024, 256, (0, 513)),      # gemma, no key beside a ragged tile
+    (16, 16, 1024, 256, 544),           # gemma, one length passed by value
+    (16, 1, 4096, 256, (4000, 4000)),   # R = 16, the most K2 takes past D = 128
+    (32, 8, 300, 192, (37, 300)),       # D = 192, R = 4
+    (16, 1, 300, 160, (37, 300)),       # D = 160, R = 16
+    (8, 2, 100, 200, (37, 100)),        # D = 200
+    (8, 2, 100, 250, (37, 100)),        # D = 250: element staging
 ])
 def test_decode_matches_plain(dev, dtype, H, G, T, D, kv):
     g = torch.Generator(device=dev).manual_seed(0)
@@ -497,6 +518,40 @@ def test_reduced_musicgen_on_the_card_matches_cpu(dev):
 # ---------------------------------------------------------------------------
 # Gradients on the card
 # ---------------------------------------------------------------------------
+def test_wide_head_launches_refuse_what_the_kernels_cannot_take(dev):
+    """D past 256 for K3 and K2, and R = 32 at D = 256 for K2, raise before
+    any launch; the plain versions on the CPU take them."""
+    z = lambda *s: torch.zeros(*s, device=dev, dtype=torch.bfloat16)
+    n3, n2 = flash_attention.launches, decode_attention.launches
+    with pytest.raises(ValueError, match="CUDA kernel takes"):
+        flash_attention(z(1, 2, 8, 320), z(1, 2, 8, 320), z(1, 2, 8, 320))
+    with pytest.raises(ValueError, match="CUDA kernel takes"):
+        decode_attention(z(1, 32, 256), z(1, 1, 8, 256), z(1, 1, 8, 256), 4)
+    assert (flash_attention.launches, decode_attention.launches) == (n3, n2)
+
+
+def test_reduced_gemma_with_256_wide_heads_on_the_card_matches_cpu(dev):
+    """Reduced gemma-7b with its head width of 256 (``reduced()`` caps it
+    at 64): prefill and 4 greedy decode steps through K3/K2 on the card
+    against the plain versions on the CPU, same fp32 weights."""
+    cfg = dataclasses.replace(get_config("gemma-7b").reduced(), head_dim=256)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_params = tree_map(lambda t: t.to(dev), cpu_params)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))).long()
+    cl, cc, cn = prefill(cpu_params, toks, cfg, max_len=48)
+    gl, gc, gn = prefill(gpu_params, toks.to(dev), cfg, max_len=48)
+    _close(gl, cl, torch.float32)
+    for _ in range(4):
+        tok = torch.argmax(cl, -1)
+        assert torch.equal(torch.argmax(gl, -1).cpu(), tok)
+        cl, cc = decode_step(cpu_params, tok, cc, cn, cfg)
+        gl, gc = decode_step(gpu_params, tok.to(dev), gc, gn, cfg)
+        cn += 1
+        gn += 1
+        _close(gl, cl, torch.float32)
+
+
 def _rel_to_scale(got, want):
     return ((got.float() - want.float()).abs().max()
             / want.float().abs().max().clamp_min(1e-30)).item()
@@ -508,6 +563,8 @@ def _rel_to_scale(got, want):
     (1, 200, 200, 8, 2, 128, True, 64, 0),     # window, ragged tiles, D = 128
     (1, 64, 576, 8, 2, 64, True, 0, 512),      # a later chunk of a prompt
     (1, 100, 576, 16, 2, 64, False, 0, 0),     # cross-attention
+    (1, 512, 512, 16, 16, 256, True, 0, 0),    # gemma-7b's heads, D = 256
+    (1, 100, 300, 8, 2, 192, False, 0, 0),     # D = 192, not causal
 ])
 def test_flash_attention_backward_on_the_card_matches_plain(
         dev, dtype, B, S, T, H, G, D, causal, window, q_offset):

@@ -118,6 +118,33 @@ def test_cache_pspec_equals_jax(name, mesh, kv_seq_shard):
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("B", [32, 1])
+def test_sequence_sharded_kv_cache_spec_is_cache_pspec(B, mesh):
+    """With kv_seq_shard on and KV heads that do not divide the model axis
+    (TinyLlama's 4 on 16), the layout the attention layers keep a cache in
+    (``kv_cache_spec``) is the one ``cache_pspec`` gives it: the positions
+    over ``model`` (the batch over the batch axes), or over ("data",
+    "model") where the batch axes do not divide B, so no layer reshards
+    the cache it is handed."""
+    from repro_torch.models.attention import kv_cache_spec
+    from repro_torch.models.layers import use_mesh
+
+    fake = TorchFakeMesh(*MESHES[mesh])
+    saved = tsharding.OPT["kv_seq_shard"]
+    tsharding.OPT["kv_seq_shard"] = True
+    try:
+        caches = init_caches(get_config("tinyllama-1.1b"), B, 4096, device="meta")
+        want = _torch_specs(caches, tsharding.cache_pspec, fake)
+        with use_mesh(fake):
+            got = {_key(p): tuple(kv_cache_spec(leaf.shape))
+                   for p, leaf in tree_leaves_with_path(caches)}
+    finally:
+        tsharding.OPT["kv_seq_shard"] = saved
+    assert got == want
+    assert {v[2] for v in got.values()} == {"model" if B == 32 else ("data", "model")}
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_data_pspec_equals_jax(mesh):
     shape, names = MESHES[mesh]
     for s in [(), (32,), (32, 4096), (1, 4096), (64, 8, 3), (48, 2)]:
@@ -298,6 +325,27 @@ for name, (arch, over, eps) in MODELS.items():
         out[f"{name}/free{i}"] = np.asarray(l)
     names = [jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_flatten_with_path(params)[0]]
     out[f"{name}/names"] = np.frombuffer(json.dumps(names).encode(), np.uint8)
+# the sequence-sharded KV cache: prefill + 2 decode steps with kv_seq_shard on
+from repro.distributed.sharding import OPT
+for name, (arch, over, B) in SEQ_MODELS.items():
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype=jnp.float32, **over)
+    params = init_params(jax.random.PRNGKey(1), cfg)
+    for i, l in enumerate(jax.tree.leaves(params)):
+        out[f"{name}/p{i}"] = np.asarray(l)
+    toks = rng.integers(0, cfg.vocab, (B, 13)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab, (B, 2)).astype(np.int32)
+    out[f"{name}/toks"], out[f"{name}/next"] = toks, nxt
+    OPT["kv_seq_shard"] = True
+    with mesh:
+        lg, caches, n = jax.jit(lambda p, t: prefill(p, t, cfg, max_len=16))(params, toks)
+        steps = [lg]
+        dec = jax.jit(lambda p, t, c, n: decode_step(p, t, c, n, cfg))
+        for i in range(2):
+            lg, caches = dec(params, nxt[:, i], caches, n + i)
+            steps.append(lg)
+    OPT["kv_seq_shard"] = False
+    out[f"{name}/logits"] = np.stack([np.asarray(s) for s in steps])
+    out[f"{name}/cache_k"] = np.asarray(caches[0]["k"])
 np.savez(sys.argv[1], **out)
 print("JAX_SIDE_OK")
 '''
@@ -415,6 +463,33 @@ def work(rank, port, ref_path, out_path):
                 tree_leaves(new_p), tree_leaves(params_shardings(host, mesh)))),
         }
 
+    # the sequence-sharded KV cache
+    from repro_torch.distributed.sharding import OPT
+    for name, (arch, over, B) in SEQ_MODELS.items():
+        cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+        tmpl = abstract_params(cfg)
+        host = tree_unflatten(tmpl, [arr(f"{name}/p{i}") for i in range(len(tree_leaves(tmpl)))])
+        OPT["kv_seq_shard"] = True
+        try:
+            with use_mesh(mesh):
+                params = distribute(host, params_shardings(host, mesh))
+                nxt = torch.from_numpy(ref[f"{name}/next"]).long()
+                lg, caches, n = prefill(params, torch.from_numpy(ref[f"{name}/toks"]).long(),
+                                        cfg, max_len=16)
+                placed = str(list(caches[0]["k"].placements))
+                steps = [full(lg)]
+                for i in range(2):
+                    lg, caches = decode_step(params, nxt[:, i], caches, n + i, cfg)
+                    steps.append(full(lg))
+                ck = caches[0]["k"]
+                local_t = ck.to_local().shape[2]
+                ck = full(ck)
+        finally:
+            OPT["kv_seq_shard"] = False
+        res[name] = {"logits": max(rel(s, j) for s, j in zip(steps, ref[f"{name}/logits"])),
+                     "cache_k": rel(ck, ref[f"{name}/cache_k"]),
+                     "placements": placed, "local_positions": local_t}
+
     # the wake-up and KV-fetch reshards
     eng = make_functional_engine(devices=[torch.device("cpu")],
                                  config=MMAConfig(chunk_bytes=4096, fallback_bytes=0))
@@ -477,7 +552,14 @@ CAPACITY_FACTORS = (64.0, 1.25)     # no drops; the config's own, which drops
 MODELS = {"olmoe": ("olmoe-1b-7b", {"moe_ep": True}, 1e-8),
           "tinyllama_g2": ("tinyllama-1.1b", {"n_kv_heads": 2}, 1e-8),   # H 4 on m 4, G 2
           "mamba2": ("mamba2-370m", {}, 1.0)}                            # K4 per local batch
-SHARED = f"SPECS = {SPECS!r}\nCAPACITY_FACTORS = {CAPACITY_FACTORS!r}\nMODELS = {MODELS!r}\n"
+# name: (config, overrides, batch) run with OPT["kv_seq_shard"] on in both
+# packages: TinyLlama with 2 KV heads on a model axis of 4, so the caches'
+# 16 positions go over ``model`` (4 a rank) where the data axis divides the
+# batch, and over ("data", "model") (2 a rank) where it does not.
+SEQ_MODELS = {"tinyllama_seq_b2": ("tinyllama-1.1b", {"n_kv_heads": 2}, 2),
+              "tinyllama_seq_b1": ("tinyllama-1.1b", {"n_kv_heads": 2}, 1)}
+SHARED = (f"SPECS = {SPECS!r}\nCAPACITY_FACTORS = {CAPACITY_FACTORS!r}\nMODELS = {MODELS!r}\n"
+          f"SEQ_MODELS = {SEQ_MODELS!r}\n")
 
 
 @pytest.fixture(scope="module")
@@ -536,6 +618,23 @@ def test_mesh_prefill_and_decode_match_jax(mesh_runs, name):
     rank's local heads."""
     r = mesh_runs[1][name]
     assert r["logits"] <= 2e-4, r
+
+
+@pytest.mark.parametrize("name,placements,local_positions", [
+    ("tinyllama_seq_b2", "[Shard(dim=1), Shard(dim=2)]", 4),
+    ("tinyllama_seq_b1", "[Shard(dim=2), Shard(dim=2)]", 2),
+])
+def test_sequence_sharded_cache_prefill_and_decode_match_jax(mesh_runs, name, placements,
+                                                             local_positions):
+    """kv_seq_shard on, G = 2 on a model axis of 4: the prefill's caches
+    come out split on the sequence axis as ``cache_pspec`` lays them out
+    (batch over ``data`` and positions over ``model``, or positions over
+    both), two decode steps write each new position on the rank that holds
+    it and attend over the gathered cache, and the logits and the written
+    cache match JAX's mesh run with the same option."""
+    r = mesh_runs[1][name]
+    assert r["placements"] == placements and r["local_positions"] == local_positions, r
+    assert r["logits"] <= 2e-4 and r["cache_k"] <= 2e-4, r
 
 
 # JAX's sharded step gives Mamba2's conv_B_w and conv_C_w (replicated

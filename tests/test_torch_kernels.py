@@ -311,8 +311,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
         elif case == "group":
             decode_attention(torch.zeros(1, 3, 16), k, k, 4)
         elif case == "head_dim":
-            flash_attention(torch.zeros(1, 4, 8, 160), torch.zeros(1, 2, 8, 160),
-                            torch.zeros(1, 2, 8, 160))
+            # the plain versions take any D >= 1; the CUDA kernels' limits
+            # are tests/test_torch_headdim.py's
+            flash_attention(torch.zeros(1, 4, 8, 0), torch.zeros(1, 2, 8, 0),
+                            torch.zeros(1, 2, 8, 0))
         elif case == "layout":
             flash_attention(torch.zeros(1, 8, 4, 16).transpose(1, 2), k, k)
         elif case == "ssd_dtype":
@@ -323,8 +325,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
         elif case == "decode_mixed_dtype":
             decode_attention(torch.zeros(1, 4, 16), k.bfloat16(), k, 4)
         elif case == "decode_head_dim":
-            decode_attention(torch.zeros(1, 4, 160), torch.zeros(1, 2, 8, 160),
-                             torch.zeros(1, 2, 8, 160), 4)
+            decode_attention(torch.zeros(1, 4, 0), torch.zeros(1, 2, 8, 0),
+                             torch.zeros(1, 2, 8, 0), 4)
         elif case == "decode_kv_len_shape":     # one length per sequence, or one
             decode_attention(torch.zeros(2, 4, 16), torch.zeros(2, 2, 8, 16),
                              torch.zeros(2, 2, 8, 16), torch.tensor([1, 2, 3]))

@@ -377,9 +377,14 @@ PORT_DRYRUN = r"""
 import json, sys
 sys.modules["jax"] = None
 sys.modules["repro"] = None
+from repro_torch.distributed.sharding import OPT
 from repro_torch.launch.dryrun import dryrun_one
 rs = [dryrun_one("tinyllama-1.1b", "decode_32k", multi_pod=mp, verbose=False)
       for mp in (False, True)]
+rs += [dryrun_one("gemma-7b", "decode_32k", multi_pod=mp, verbose=False)
+       for mp in (False, True)]
+OPT["kv_seq_shard"] = True
+rs.append(dryrun_one("tinyllama-1.1b", "decode_32k", verbose=False))
 print("PORT " + json.dumps(rs))
 """
 
@@ -390,7 +395,7 @@ import repro.launch.dryrun as jd       # sets 512 host devices before jax starts
 import jax
 from jax.sharding import AxisType
 from repro.configs import INPUT_SHAPES, get_config
-from repro.distributed.sharding import (batch_shardings, cache_shardings,
+from repro.distributed.sharding import (OPT, batch_shardings, cache_shardings,
                                         params_shardings, replicated)
 from repro.launch.specs import input_specs
 from repro.models.init import abstract_params
@@ -410,11 +415,18 @@ pairs = [(params, params_shardings(params, mesh)),
          (specs["token"], batch_shardings(specs["token"], mesh)),
          (specs["caches"], cache_shardings(specs["caches"], mesh)),
          (specs["cache_len"], replicated(mesh))]
-shard_bytes = sum(
-    int(np.prod(sh.shard_shape(leaf.shape))) * leaf.dtype.itemsize
-    for tree, shardings in pairs
-    for leaf, sh in zip(jax.tree.leaves(tree), jax.tree.leaves(shardings)))
-r["shard_bytes"] = shard_bytes
+
+
+def shard_bytes(pairs):
+    return sum(int(np.prod(sh.shard_shape(leaf.shape))) * leaf.dtype.itemsize
+               for tree, shardings in pairs
+               for leaf, sh in zip(jax.tree.leaves(tree), jax.tree.leaves(shardings)))
+
+
+r["shard_bytes"] = shard_bytes(pairs)
+OPT["kv_seq_shard"] = True              # the caches' sequence axis over model
+r["shard_bytes_kv_seq_shard"] = shard_bytes(
+    pairs[:2] + [(specs["caches"], cache_shardings(specs["caches"], mesh))] + pairs[3:])
 print("JAX " + json.dumps(r))
 """
 
@@ -432,7 +444,7 @@ def dryruns():
 
 
 def test_dryrun_one_combo_on_both_meshes(dryruns):
-    r1, r2 = dryruns["PORT"]
+    r1, r2 = dryruns["PORT"][:2]
     assert r1["ok"] and r2["ok"]
     assert (r1["n_chips"], r2["n_chips"]) == (256, 512)
     assert (r1["mesh"], r2["mesh"]) == ("16x16", "2x16x16")
@@ -455,6 +467,30 @@ def test_dryrun_argument_bytes_equal_jax_shards(dryruns):
           f"JAX {jx['memory_analysis']['output_size_in_bytes']}")
     assert port["kind"] == jx["kind"] == "decode"
     assert port["model_flops"] == jx["model_flops"]
+
+
+def test_dryrun_of_gemma_with_256_wide_heads(dryruns):
+    """gemma-7b x decode_32k (16 heads of 256) runs on both meshes: the
+    kernel ops' meta route takes the head width the JAX package does."""
+    r1, r2 = dryruns["PORT"][2:4]
+    assert r1["ok"] and r2["ok"] and (r1["arch"], r1["shape"]) == ("gemma-7b", "decode_32k")
+    assert (r1["n_chips"], r2["n_chips"]) == (256, 512)
+    assert r1["flops_per_device"] > 0 and r2["flops_per_device"] > 0
+
+
+def test_dryrun_kv_seq_shard_argument_bytes_equal_jax_shards(dryruns):
+    """tinyllama x decode_32k with kv_seq_shard on 16 x 16: 4 KV heads do
+    not divide the model axis, so the caches' 32k positions go over it;
+    the port's argument bytes equal JAX's shards of the same layout, 1/16
+    of the caches' bytes without the option."""
+    port, plain, jx = dryruns["PORT"][4], dryruns["PORT"][0], dryruns["JAX"]
+    assert port["ok"] and port["opt"] == "kv_seq_shard" and port["mesh"] == "16x16"
+    got = port["memory_analysis"]["argument_size_in_bytes"]
+    assert got == jx["shard_bytes_kv_seq_shard"]
+    assert got < plain["memory_analysis"]["argument_size_in_bytes"]
+    print(f"argument bytes with kv_seq_shard: {got} (without: "
+          f"{plain['memory_analysis']['argument_size_in_bytes']}); collective bytes "
+          f"{port['collective_bytes_per_device']:.6g}, {port['collective_counts']}")
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,12 @@ Phases, one result line each:
              prompt (its share of the operations bound) and at the train
              phase's 8 x 512 tokens with its backward (PyTorch ops) held
              to autograd through the plain version; K3 and K4 with the
-             HGMMA count `cuobjdump -sass` finds in their bf16 kernels; K4 on
+             HGMMA count `cuobjdump -sass` finds in their bf16 kernels; K1's
+             relay_assemble_op equal to K1 bit for bit (one launch a call),
+             and K1 against index_select at OLMoE's 4 GiB leaf in 5
+             alternating rounds; K3 and K2 in bf16 beside the JAX package's
+             gqa (its roundings) at TinyLlama's prefill and decode and
+             gemma's D = 256 decode, with their plain versions' gaps; K4 on
              its default route (the CUDA cores, which the model takes) and,
              for every bf16 case they take, on the tensor cores; at the
              served shape timed on both and inside ssd_op (K4 + the
@@ -37,7 +42,9 @@ Phases, one result line each:
              over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
   serve      the dense path: TinyLlama-1.1B at full width in bf16 (random weights
              from a seed), a WeightManager sleep/wake round trip, then a
-             FunctionalServer answering 4 requests with a prefix hit on the repeat
+             FunctionalServer answering 4 requests with a prefix hit on the repeat;
+             then a prefill longer than a linear cache, a decode step at a full
+             one and a request past the server's max_len must each raise
   serve-ssm  the SSM path: Mamba2-370m at full width in bf16, the same round
              trip and requests, prefill through K4 (every launch on its
              default route) and recurrent decode
@@ -60,7 +67,11 @@ Phases, one result line each:
              logits beside the same entry points without a mesh); the
              caches through the KV fetch (bit-exact); then one AdamW step
              of TinyLlama-1.1B on DTensor parameters, its loss within 1e-3
-             of the step without a mesh
+             of the step without a mesh; then Mamba2-370m at full width and
+             depth under the mesh (path dist-mamba2): the mixer
+             head-parallel in the JAX layout, a 512-token prefill (cold and
+             warm, K4 48 times each) and 8 decode steps, logits and every
+             cache leaf equal bit for bit to the same calls without a mesh
   serve-vlm  cross-attention: llama-3.2-vision-90b at full width cut to 2
              periods (10 layers, 21.3 GB), the same round trip, then prefill
              and 31 greedy decode steps with a (1, 576, 8192) frontend for
@@ -116,7 +127,8 @@ just after it (musicgen's inputs_embeds run is a path of its own,
 serve-audio:inputs_embeds, and gemma's entry-point run
 serve-gemma:launch-serve; the train phase's steps and checkpoint are path
 train; phase dist's OLMoE run and its train step, each counted apart and
-summed, are path dist; the two entry points' runs are paths launch-serve
+summed, are path dist, its Mamba2 run path dist-mamba2; the two entry
+points' runs are paths launch-serve
 and launch-train). The script ends with the kernels JSON line
 (launches summed over the paths, and per path), the card's name and power
 limit, and
@@ -233,11 +245,15 @@ def phase_build(out_dir):
            spill_lines=spills[:8])
 
 
-def _relay_leaf(dev, gen, elems, reps):
+def _relay_leaf(dev, gen, elems, reps, rounds=0):
     """K1 on one wake leaf of ``elems`` bf16 elements at 1 MiB chunks:
     bit-exact for the identity and a random landing order, then timed on
-    the identity (the order chunks land in on one card)."""
-    from repro_torch.kernels import relay_assemble, relay_assemble_ref
+    the identity (the order chunks land in on one card). With ``rounds``,
+    K1 and ``index_select`` are timed again in that many alternating
+    rounds (device ms, a CUDA graph of ``reps`` calls each): the median and
+    the spread (max - min) of each, and whether every K1 round is slower
+    than every ``index_select`` round."""
+    from repro_torch.kernels import relay_assemble, relay_assemble_op, relay_assemble_ref
 
     chunk = (1 << 20) // 2
     n = -(-elems // chunk)
@@ -251,9 +267,19 @@ def _relay_leaf(dev, gen, elems, reps):
         torch.cuda.synchronize()
         check(torch.equal(out.view(torch.int16), ref.view(torch.int16)),
               f"relay_assemble ({n}, {chunk}) {name} perm is not bit-exact")
-        del out, ref
+        # the JAX package's op: K1 itself (one launch) or the plain version
+        before = relay_assemble.launches
+        op = relay_assemble_op(staged, perm)
+        check(relay_assemble.launches == before + 1 and _same_bits(op, out),
+              f"relay_assemble_op ({n}, {chunk}) {name}: not K1's output bit for bit, or "
+              f"{relay_assemble.launches - before} launches, not 1")
+        op = relay_assemble_op(staged, perm, use_kernel=False)
+        check(relay_assemble.launches == before + 1 and _same_bits(op, ref),
+              f"relay_assemble_op(use_kernel=False) ({n}, {chunk}) {name} launched K1 or "
+              f"is not the plain version")
+        del out, ref, op
     perm = torch.arange(n, device=dev, dtype=torch.int32)   # the main path's
-    return {
+    row = {
         "shape": f"staged ({n}, {chunk}) bf16, identity perm",
         **timed("ms", lambda: relay_assemble(staged, perm), reps),
         **timed("plain_ms", lambda: relay_assemble_ref(staged, perm), reps),
@@ -261,6 +287,17 @@ def _relay_leaf(dev, gen, elems, reps):
         "bound_ms": 2 * nbytes(staged) / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
     }
+    if rounds:
+        k1, lib = [], []
+        for _ in range(rounds):
+            k1.append(time_ms(lambda: relay_assemble(staged, perm), reps)[0])
+            lib.append(time_ms(lambda: staged.index_select(0, perm), reps)[0])
+        row["rounds"] = {
+            "ms": k1, "library_ms": lib,
+            "ms_median": float(np.median(k1)), "ms_spread": max(k1) - min(k1),
+            "library_ms_median": float(np.median(lib)), "library_ms_spread": max(lib) - min(lib),
+            "k1_slower_in_every_round": min(k1) > max(lib)}
+    return row
 
 
 def _relay_case(dev, gen):
@@ -279,11 +316,12 @@ def _relay_case(dev, gen):
         # TinyLlama's largest wake leaf: w_gate (22, 2048, 5632)
         **_relay_leaf(dev, gen, 22 * 2048 * 5632, 20),
         # OLMoE's: each expert leaf (16, 64, 2048, 1024), 2^31 elements, 4 GiB
-        "olmoe": _relay_leaf(dev, gen, 16 * 64 * 2048 * 1024, 4),
+        "olmoe": _relay_leaf(dev, gen, 16 * 64 * 2048 * 1024, 4, rounds=5),
     }
     o = row["olmoe"]
     print(f"  relay_assemble olmoe {o['shape']}: bit-exact, ms={o['ms']:.4f} "
-          f"index_select_ms={o['library_ms']:.4f} bound_ms={o['bound_ms']:.4f}", flush=True)
+          f"index_select_ms={o['library_ms']:.4f} bound_ms={o['bound_ms']:.4f}; "
+          f"5 alternating rounds {json.dumps(o['rounds'])}", flush=True)
     return row
 
 
@@ -814,10 +852,48 @@ def _tensor_cores_in_ssd_op():
                              functools.partial(ops.ssd_chunk_op, which="tensor_cores"))
 
 
+def _gqa_gaps(dev, gen, kind, B, H, G, D, T, kv_len=None):
+    """K3 (a causal prefill of T tokens) or K2 (one token against kv_len of
+    a T-slot cache) in bf16 on the card, and its plain version, each
+    against ``gqa`` (the JAX package's XLA attention, its roundings) in
+    bf16 on the same inputs: max abs gaps and max |o|. Readings, not
+    gates."""
+    from repro_torch.kernels import decode_attention_op, decode_attention_op_ref, \
+        flash_attention_op, flash_attention_op_ref
+    from repro_torch.models import causal_mask, gqa
+
+    Sq = T if kind == "K3" else 1
+    q = torch.randn(B, Sq, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    k, v = (torch.randn(B, T, G, D, device=dev, generator=gen).to(torch.bfloat16)
+            for _ in range(2))
+    if kind == "K3":
+        kernel = flash_attention_op(q, k, v, causal=True)
+        plain = flash_attention_op_ref(q, k, v, causal=True)
+        want = gqa(q, k, v, causal_mask(torch.arange(T, device=dev),
+                                        torch.arange(T, device=dev)))
+    else:
+        kernel = decode_attention_op(q, k, v, kv_len)
+        plain = decode_attention_op_ref(q, k, v, kv_len)
+        want = gqa(q, k, v, (torch.arange(T, device=dev) < kv_len)[None, None, None, None])
+    return {"shape": f"q {tuple(q.shape)}, k,v {tuple(k.shape)} bf16"
+                     + (f", kv_len {kv_len}" if kv_len else ", causal"),
+            "kernel_vs_gqa": max_err(kernel, want), "plain_vs_gqa": max_err(plain, want),
+            "max_abs_o": want.float().abs().max().item()}
+
+
 def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = [_relay_case(dev, gen), _flash_case(dev, gen), _decode_case(dev, gen),
             _ssd_case(dev, gen)]
+    # how far the kernels (and their plain versions) lie from JAX's bf16
+    # attention at served shapes: TinyLlama's prefill and decode, gemma's D 256
+    rows[1]["gqa_bf16"] = {"tinyllama": _gqa_gaps(dev, gen, "K3", 1, 32, 4, 64, 512)}
+    rows[2]["gqa_bf16"] = {
+        "tinyllama": _gqa_gaps(dev, gen, "K2", 1, 32, 4, 64, 1024, kv_len=300),
+        "gemma": _gqa_gaps(dev, gen, "K2", 1, 16, 16, 256, 1024, kv_len=300)}
+    for r in rows[1:3]:
+        for where, g in r["gqa_bf16"].items():
+            print(f"  {r['name']} {where} against gqa (bf16): {json.dumps(g)}", flush=True)
     report("kernels", **{r["name"]: {k: r.get(k) for k in (
         "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         for r in rows})
@@ -1207,14 +1283,50 @@ def _plain_noise(params, cfg, prompt, etas=(1e-5, 1e-4, 1e-3), seeds=(0, 1, 2),
     return out
 
 
+def _cache_bounds(params, toks, plain):
+    """A linear cache's bounds on the card, with the served TinyLlama (not
+    counted): a 17-token prefill into 16 slots, a decode step at a full
+    cache (``cache_len`` 16 of 16) and a request of 16 prompt tokens and 2
+    new to a server of ``max_len`` 16 must each raise ``ValueError``, the
+    decode leaving the cache unchanged."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving import FunctionalServer
+
+    cfg = get_config("tinyllama-1.1b")
+
+    def refused(call):
+        try:
+            call()
+        except ValueError:
+            return True
+        return False
+
+    _, caches, n = prefill(params, toks[:, :16], cfg, max_len=16)
+    before = caches[0]["k"].clone()
+    out = {
+        "prefill_past_max_len": refused(lambda: prefill(params, toks[:, :17], cfg,
+                                                        max_len=16)),
+        "decode_at_full_cache": refused(lambda: decode_step(params, toks[:, 16], caches, n,
+                                                            cfg)),
+        "request_past_max_len": refused(lambda: FunctionalServer(
+            cfg, params=params, max_len=16, device=toks.device).submit(
+                np.arange(16), max_new_tokens=2)),
+    }
+    check(all(out.values()) and torch.equal(before, caches[0]["k"]),
+          f"a linear cache's bound was not refused on the card: {out}")
+    return {"cache_bounds_refused": out}
+
+
 def phase_serve(dev):
     """TinyLlama-1.1B: prefill through K3, decode through K2, wake through
     K1. Decode is compared from the same caches, so the plain K2 is held
-    to the kernel step by step (kv_len 513-520)."""
+    to the kernel step by step (kv_len 513-520). Then the linear cache's
+    bounds are refused on the card (``_cache_bounds``)."""
     _, _, counts, fields = _serve(
         dev, "tinyllama-1.1b", _plain_attention,
         ("relay_assemble", "flash_attention", "decode_attention"),
-        decode_from_plain_prefill=False)
+        decode_from_plain_prefill=False, compare=_cache_bounds)
     report("serve", **fields)
     return counts
 
@@ -1687,6 +1799,88 @@ def _dist_train(dev, mesh):
                 train_peak_mem_GB=peak / 1e9), counts
 
 
+def _dist_mamba2(dev, mesh):
+    """Part 3 of phase dist (counted as path dist-mamba2): Mamba2-370m at
+    full width and depth in bf16 (839,653,376 bytes), random weights from
+    seed 0, as DTensors under the mesh: a 512-token prefill (cold, then
+    again warm) and 8 greedy decode steps, the mixer head-parallel in
+    JAX's layout (K4 48 times a prefill, every launch on its default
+    route). Then, not counted, the same calls without a mesh on the same
+    weights and tokens: the logits of every call and every cache leaf
+    (after the prefill and after the 8 steps) must equal the mesh run's bit
+    for bit, every ``psum`` being over a group of one. Reported: the warm
+    prefill's ms and the decode tokens/s with and without the mesh."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import distribute, params_shardings
+    from repro_torch.kernels import reset_launch_counts
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import route
+    from repro_torch.models import decode_step, init_params, param_bytes, prefill, \
+        tree_bytes, use_mesh
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config("mamba2-370m")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    nbytes = tree_bytes(params)
+    check(nbytes == param_bytes(cfg) == 839_653_376,
+          f"Mamba2-370m has {nbytes} bytes of leaves, {param_bytes(cfg)} in its config")
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, size=512),
+                             dtype=torch.long, device=dev)[None]
+
+    def run(p, tokens=None):
+        """Cold and warm prefill, 8 decode steps (greedy, or fed
+        ``tokens``): (logits, caches after the prefill and after the
+        steps, tokens, warm prefill ms, decode tokens/s)."""
+        prefill(p, prompt, cfg, max_len=1024)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, caches, clen = prefill(p, prompt, cfg, max_len=1024)
+        out = [_whole(logits)]
+        torch.cuda.synchronize()
+        prefill_ms = (time.monotonic() - t0) * 1e3
+        after_prefill = [_whole(c).clone() for c in tree_leaves(caches)]
+        fed = [int(torch.argmax(out[0][0]))] if tokens is None else tokens
+        t0 = time.monotonic()
+        for i in range(8):
+            tok = torch.tensor([fed[i]], dtype=torch.long, device=dev)
+            logits, caches = decode_step(p, tok, caches, clen + i, cfg)
+            out.append(_whole(logits))
+            if tokens is None:
+                fed.append(int(torch.argmax(out[-1][0])))
+        torch.cuda.synchronize()
+        tps = 8 / (time.monotonic() - t0)
+        return out, after_prefill + [_whole(c) for c in tree_leaves(caches)], fed, \
+            prefill_ms, tps
+
+    mp = distribute(params, params_shardings(params, mesh))
+    reset_launch_counts()                        # --- the main path starts here
+    with use_mesh(mesh):
+        mesh_logits, mesh_caches, tokens, prefill_ms, tps = run(mp)
+    counts = _counts()                           # --- the main path ends here
+    free_logits, free_caches, _, free_prefill_ms, free_tps = run(params, tokens)
+
+    served = route(cfg.dtype, cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state)
+    check(counts["ssd_chunk"] == 2 * cfg.n_layers
+          and counts[f"ssd_chunk:{served}"] == counts["ssd_chunk"],
+          f"K4 under the mesh {counts}: want {cfg.n_layers} a prefill, twice, all on "
+          f"its default route {served}")
+    check(counts["flash_attention"] == counts["decode_attention"] == 0,
+          "an attention kernel ran on the attention-free model")
+    check(all(torch.isfinite(l).all().item() and l.shape == (1, cfg.vocab)
+              for l in mesh_logits), "Mamba2's logits under the mesh are not finite (1, vocab)")
+    logits_equal = all(_same_bits(a, b) for a, b in zip(mesh_logits, free_logits))
+    caches_equal = len(mesh_caches) == len(free_caches) and all(
+        _same_bits(a, b) for a, b in zip(mesh_caches, free_caches))
+    check(logits_equal and caches_equal,
+          f"Mamba2 under the one-rank mesh is not the run without one bit for bit "
+          f"(logits {logits_equal}, caches {caches_equal}; max logits gap "
+          f"{max(max_err(a, b) for a, b in zip(mesh_logits, free_logits)):.3e})")
+    return dict(mamba2_model=cfg.name, mamba2_weight_bytes=nbytes,
+                mamba2_warm_prefill_ms=prefill_ms, mamba2_warm_prefill_ms_no_mesh=free_prefill_ms,
+                mamba2_decode_tokens_per_s=tps, mamba2_decode_tokens_per_s_no_mesh=free_tps,
+                mamba2_logits_bit_equal_vs_no_mesh=logits_equal,
+                mamba2_caches_bit_equal_vs_no_mesh=caches_equal, mamba2_tokens=tokens), counts
+
+
 # Two ranks on the one card over gloo were tried on an H100 with torch
 # 2.11 (CUDA 12.8): gloo takes CUDA tensors for all_reduce,
 # all_gather_into_tensor and all_to_all_single (c10d's and
@@ -1714,10 +1908,14 @@ def phase_dist(dev):
     plain version on the same inputs); the caches carried through
     ``make_kv_fetch_step`` (gated bit-exact); then TinyLlama-1.1B takes one
     AdamW step on DTensor parameters (its loss held within 1e-3 relative of
-    the step without a mesh). Reported: staging GB/s, reshard ms, the
-    largest logits difference from the same entry points without a mesh,
-    peak GB. Two ranks on the card are not run: TWO_RANKS_ON_ONE_CARD says
-    why."""
+    the step without a mesh); then Mamba2-370m under the mesh, counted
+    apart as path dist-mamba2 (``_dist_mamba2``: its logits and caches
+    equal to the run without a mesh bit for bit). Reported: staging GB/s,
+    reshard ms, the largest logits difference from the same entry points
+    without a mesh, peak GB, Mamba2's warm prefill ms and decode tokens/s
+    with and without the mesh. Two ranks on the card are not run:
+    TWO_RANKS_ON_ONE_CARD says why. Returns the launch counts of path
+    dist and of path dist-mamba2."""
     import torch.distributed as dist
 
     from repro_torch.launch import make_host_mesh
@@ -1729,14 +1927,16 @@ def phase_dist(dev):
         fields, counts = _dist_olmoe(dev, mesh)
         torch.cuda.empty_cache()
         train_fields, train_counts = _dist_train(dev, mesh)
+        torch.cuda.empty_cache()
+        mamba2_fields, mamba2_counts = _dist_mamba2(dev, mesh)
     finally:
         dist.destroy_process_group()
-    fields.update(train_fields, two_ranks_on_one_card=TWO_RANKS_ON_ONE_CARD)
+    fields.update(train_fields, **mamba2_fields, two_ranks_on_one_card=TWO_RANKS_ON_ONE_CARD)
     print(f"  dist: two ranks on one card {TWO_RANKS_ON_ONE_CARD}", flush=True)
     counts = {k: counts.get(k, 0) + train_counts.get(k, 0) for k in {*counts, *train_counts}}
-    fields["launches"] = counts
+    fields["launches"], fields["launches_mamba2"] = counts, mamba2_counts
     report("dist", **fields)
-    return counts
+    return counts, mamba2_counts
 
 
 @contextlib.contextmanager
@@ -2483,7 +2683,7 @@ def main(argv=None) -> int:
             ("serve", lambda: counts.update(serve=phase_serve(dev))),
             ("serve-ssm", lambda: counts.update({"serve-ssm": phase_serve_ssm(dev)})),
             ("serve-moe", lambda: counts.update({"serve-moe": phase_serve_moe(dev)})),
-            ("dist", lambda: counts.update(dist=phase_dist(dev))),
+            ("dist", lambda: counts.update(zip(("dist", "dist-mamba2"), phase_dist(dev)))),
             ("serve-vlm", lambda: counts.update({"serve-vlm": phase_serve_vlm(dev)})),
             ("serve-audio", lambda: counts.update(zip(
                 ("serve-audio", "serve-audio:inputs_embeds"), phase_serve_audio(dev)))),

@@ -30,7 +30,7 @@ from .flash_attention import (
     flash_attention_op_ref,
     flash_attention_ref,
 )
-from .relay_copy import relay_assemble, relay_assemble_ref
+from .relay_copy import relay_assemble, relay_assemble_op, relay_assemble_ref
 from .ssd_chunk import (
     ssd_chunk,
     ssd_chunk_op,

@@ -18,7 +18,7 @@ import torch
 
 from .. import build
 from ..flash_attention.flash_attention import DTYPES, check_head_dim, check_inputs
-from .ref import decode_attention_ref
+from .ref import NEG_INF, decode_attention_ref  # noqa: F401  (JAX's name: a masked score)
 
 TILE_K = 32              # keys per tile in the kernel
 MAX_GROUP = 32           # R = H / G the kernel takes up to D = 128 (8 warps x 4 rows)

@@ -11,7 +11,7 @@ from typing import List, Sequence, Tuple
 import torch
 
 from .. import build
-from .ref import flash_attention_ref
+from .ref import NEG_INF, flash_attention_ref  # noqa: F401  (JAX's name: a masked score)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256       # D the CUDA kernels take; the plain versions take any

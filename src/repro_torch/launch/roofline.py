@@ -33,6 +33,9 @@ HBM_GBPS = 3.35e12          # bytes/s of HBM3
 # cross the network. Within a node NVLink 4 carries 450e9 bytes/s per
 # direction.
 LINK_GBPS = 50e9
+# The JAX package's name for the per-chip link rate (TPU ICI). On the H100
+# the link the production mesh's collectives cross is the NIC above.
+ICI_LINK_GBPS = LINK_GBPS
 
 COLLECTIVE_KINDS = (
     "all-gather", "all-reduce", "reduce-scatter", "all-to-all",

@@ -11,8 +11,10 @@ under a device mesh (``use_mesh``: the parameters as DTensors, the JAX
 package's sharding constraints, the kernels on each rank's local
 heads)."""
 from .attention import (
+    causal_mask,
     cross_attention,
     decode_self_attention,
+    gqa,
     init_kv_cache,
     out_proj,
     qkv_proj,
@@ -20,7 +22,9 @@ from .attention import (
 )
 from .init import (
     abstract_params,
+    init_layer,
     init_params,
+    init_period,
     param_bytes,
     params_from_jax,
     tree_bytes,

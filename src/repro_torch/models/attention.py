@@ -17,10 +17,16 @@ over the data axes), the KV caches the layout of ``kv_cache_spec`` (JAX's
 ``model`` axis, the positions are split over it instead), and each kernel
 call runs through ``shard_map`` on each rank's local heads
 (``_per_head``), attention being independent per head.
+
+``gqa`` and ``causal_mask`` are the JAX package's XLA attention (its
+default, ``attn_impl = "xla"``), in plain PyTorch with JAX's roundings: a
+reference the tests and ``chip_smoke.py`` hold the kernels' bf16 results
+to, not a path. The model reads no ``attn_impl``: K3 and K2 serve and train
+on every device, so no served path gives way to ``gqa``.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,6 +45,9 @@ from .layers import (
     shard_map,
     split_last,
 )
+
+
+NEG_INF = -1e30
 
 
 def kv_cache_spec(shape):
@@ -65,6 +74,12 @@ def kv_seq_axes(spec) -> Tuple[str, ...]:
     ``axis_index(*axes)`` of the positions."""
     e = spec[-3]
     return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+
+def shard_kv_cache(x: torch.Tensor) -> torch.Tensor:
+    """A KV cache (B, T, G, D) constrained to ``kv_cache_spec``'s layout
+    (JAX's ``shard_kv_cache``): the identity with no mesh."""
+    return shard(x, *kv_cache_spec(x.shape))
 
 
 def _per_head(fn, q, k, v, *caches):
@@ -130,6 +145,40 @@ def out_proj(params: Dict, o: torch.Tensor, cfg) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# The JAX package's XLA attention (a reference; the model runs K3/K2)
+# ---------------------------------------------------------------------------
+def gqa(
+    q: torch.Tensor,                  # (B, Sq, H, D)
+    k: torch.Tensor,                  # (B, T, G, D)
+    v: torch.Tensor,                  # (B, T, G, D)
+    mask: Optional[torch.Tensor],     # broadcastable to (B, 1, 1, Sq, T)
+) -> torch.Tensor:
+    """Grouped attention as JAX's ``gqa`` rounds it: the scores' product in
+    the inputs' dtype, then fp32 and the D^-0.5 scale; masked entries
+    ``NEG_INF``; softmax in fp32; the probabilities cast to ``v``'s dtype
+    before PV. Heads grouped (B, Sq, G, R, D); no KV head is repeated."""
+    B, Sq, H, D = q.shape
+    G = k.shape[2]
+    qg = q.reshape(B, Sq, G, H // G, D)
+    scores = torch.einsum("bsgrd,btgd->bgrst", qg, k).float() * D ** -0.5
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bgrst,btgd->bsgrd", p.to(v.dtype), v)
+    return o.reshape(B, Sq, H, D)
+
+
+def causal_mask(q_pos: torch.Tensor, kv_pos: torch.Tensor,
+                window: int = 0) -> torch.Tensor:
+    """(Sq,) and (T,) positions -> a (1, 1, 1, Sq, T) mask: a key at or
+    before the query, and within ``window`` of it (0: unlimited)."""
+    m = kv_pos[None, :] <= q_pos[:, None]
+    if window:
+        m &= kv_pos[None, :] > q_pos[:, None] - window
+    return m[None, None, None]
+
+
+# ---------------------------------------------------------------------------
 # Train / prefill self-attention
 # ---------------------------------------------------------------------------
 def self_attention(
@@ -184,8 +233,14 @@ def decode_self_attention(
     the write lands in each rank's local block. Where kv_seq_shard splits
     the positions, only the rank whose block holds the slot writes, and the
     blocks are gathered over the sequence axes for K2 (every rank then
-    attends over the whole valid cache of its local heads)."""
+    attends over the whole valid cache of its local heads). A linear cache
+    (``window`` 0) that is full (``cache_len`` >= W) raises ``ValueError``
+    before anything is written; JAX's ``dynamic_update_slice`` clamps the
+    slot there and overwrites the last position's K/V."""
     W = cache["k"].shape[1]
+    if not window and cache_len >= W:
+        raise ValueError(f"decode at cache_len {cache_len} into a full linear KV "
+                         f"cache of {W} (max_len): cache_len must be below W")
     q, k_new, v_new = qkv_proj(params, x, cfg)
     pos = torch.full((1,), cache_len, dtype=torch.int64, device=x.device)
     q = rope(q, pos, cfg.rope_theta)

@@ -2,7 +2,8 @@
 weights, every block leaf stacked along a leading ``n_periods`` axis, and
 ``params["blocks"]`` a list with one dict per position in the period.
 
-``init_params`` draws the JAX package's distributions (scaled normals,
+``init_params`` (and ``init_layer``/``init_period``, one layer or period
+unstacked) draws the JAX package's distributions (scaled normals,
 ones, zeros) from a ``torch.Generator`` — the numbers differ from
 ``jax.random``'s. A normal's default scale is (fan-in)^-0.5, the first
 axis of the unstacked leaf as the JAX package takes it; where that is not
@@ -15,7 +16,7 @@ weights.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -104,11 +105,9 @@ def _build(cfg, make: Callable[[Spec], torch.Tensor]) -> Dict:
     return params
 
 
-def init_params(cfg, generator: Optional[torch.Generator] = None,
-                device=None) -> Dict:
-    """Random parameters on ``device`` (the current card by default).
-    Normals are drawn on the generator's device, so a CUDA generator keeps
-    a full-size init on the card."""
+def _maker(generator: Optional[torch.Generator], device) -> Callable[[Spec], torch.Tensor]:
+    """``make(spec)`` drawing from ``generator`` (a fresh one on ``device``
+    when None) onto ``device`` (the current card by default)."""
     device = resolve_device(device)
     gen = generator if generator is not None else torch.Generator(device)
 
@@ -118,7 +117,33 @@ def init_params(cfg, generator: Optional[torch.Generator] = None,
             return _dense(gen, shape, dtype, device, value)
         return torch.full(shape, value, dtype=dtype, device=device)
 
-    return _build(cfg, make)
+    return make
+
+
+def init_params(cfg, generator: Optional[torch.Generator] = None,
+                device=None) -> Dict:
+    """Random parameters on ``device`` (the current card by default).
+    Normals are drawn on the generator's device, so a CUDA generator keeps
+    a full-size init on the card."""
+    return _build(cfg, _maker(generator, device))
+
+
+def init_layer(cfg, mixer: str, channel: str,
+               generator: Optional[torch.Generator] = None, device=None) -> Dict:
+    """One layer's leaves, unstacked (the JAX package's ``init_layer``,
+    drawn from a ``torch.Generator`` in place of a ``jax.random`` key)."""
+    make = _maker(generator, device)
+    return {name: make(spec)
+            for name, spec in _layer_specs(cfg, mixer, channel).items()}
+
+
+def init_period(cfg, generator: Optional[torch.Generator] = None,
+                device=None) -> List[Dict]:
+    """One period's layers, one dict per position of ``cfg.layer_plan()``
+    (the JAX package's ``init_period``): the leaves of ``init_params``'s
+    blocks without their leading n_periods axis."""
+    return [init_layer(cfg, mixer, channel, generator, device)
+            for mixer, channel in cfg.layer_plan()]
 
 
 def abstract_params(cfg) -> Dict:

@@ -207,6 +207,38 @@ def psum(x: torch.Tensor, *axes: str) -> torch.Tensor:
     return _ReplicatedSum.apply(x, [mesh.get_group(a) for a in axes])
 
 
+class _VaryingSum(torch.autograd.Function):
+    """JAX's ``psum`` whose result each rank then uses for its own block
+    (a varying result): the forward sums the ranks' ``x`` over the process
+    group in rank order (an all-gather, then a sum over the gathered axis,
+    so every rank gets the same bits whatever the backend); the backward
+    sums the ranks' cotangents the same way, since each rank's ``x``
+    reaches every rank's result."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return _rank_order_sum(x, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _rank_order_sum(grad, ctx.axis), None
+
+
+def _rank_order_sum(x: torch.Tensor, axis: str) -> torch.Tensor:
+    return all_gather(x.unsqueeze(0), 0, axis).sum(dim=0)
+
+
+def psum_varying(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """Inside ``shard_map``: ``x`` summed over the active mesh's ``axis``
+    in rank order, for a result that each rank then combines with its own
+    block (the rms of channels split over ``model``); ``x`` itself with no
+    mesh or where the axis has one rank."""
+    if mesh_axis_sizes().get(axis, 1) == 1:
+        return x
+    return _VaryingSum.apply(x, axis)
+
+
 def pmean(x: torch.Tensor, *axes: str) -> torch.Tensor:
     """Inside ``shard_map``: the mean of ``x`` over the active mesh's
     ``axes``."""

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.ssd_chunk.ops import ssd_op
-from .layers import BATCH, MODEL, rms_norm, shard
+from .layers import MODEL, model_rank, psum_varying, rms_norm
 
 
 # ---------------------------------------------------------------------------
@@ -100,6 +100,100 @@ def _tail(x: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(t, (0, 0, n - t.shape[1], 0)) if t.shape[1] < n else t
 
 
+def _groups_of_heads(t: torch.Tensor, h: int, cfg) -> torch.Tensor:
+    """B or C (b, ..., g, n) for the ``h`` local heads: the whole tensor
+    when they are all of them or there is one group; else head j's group
+    (model_rank * h + j) // (H / g) for each local head, one group a head."""
+    H, g = cfg.ssm_heads, cfg.ssm_groups
+    if h == H or g == 1:
+        return t
+    first = model_rank() * h
+    return t[..., (first + torch.arange(h, device=t.device)) // (H // g), :]
+
+
+def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor, cfg):
+    """rms_norm(y * silu(z)) over all d_inner channels. Where a rank holds
+    a block of them (the heads split over ``model``), the fp32 sum of
+    squares of each block is summed over ``model`` in rank order."""
+    g = y * F.silu(z)
+    width = cfg.ssm_d_inner
+    if g.shape[-1] == width:
+        return rms_norm(g, scale, cfg.norm_eps)
+    x32 = g.float()
+    var = psum_varying(x32.square().sum(dim=-1, keepdim=True), MODEL) / width
+    return (x32 * torch.rsqrt(var + cfg.norm_eps) * scale.float()).to(g.dtype)
+
+
+def mamba_mix(params: Dict, z, xin_raw, Bp_raw, Cp_raw, dt, cfg,
+              initial_state: Optional[Dict] = None):
+    """The mixer between its projections, on the heads that ``dt`` (b, l,
+    h) holds and their channels (``z``, ``xin_raw``, ``params``' per-head
+    and per-channel leaves alike; B and C whole): the depthwise convs, the
+    SSD scan (K4 through ``ssd_op``), the skip, the gate and the norm.
+    Returns (y (b, l, h*p) before ``w_out``, the state in
+    ``init_ssm_state``'s schema for these heads)."""
+    b, l, h = dt.shape
+    p, n = cfg.ssm_head_dim, cfg.ssm_state
+    tail = cfg.conv_width - 1
+    xin = F.silu(causal_conv(xin_raw, params["conv_x_w"], params["conv_x_b"]))
+    Bp = F.silu(causal_conv(Bp_raw, params["conv_B_w"], params["conv_B_b"]))
+    Cp = F.silu(causal_conv(Cp_raw, params["conv_C_w"], params["conv_C_b"]))
+    dt = F.softplus(dt + params["dt_bias"])                      # (b, l, h)
+    a = -torch.exp(params["A_log"]) * dt                         # fp32
+    xh = xin.reshape(b, l, h, p)
+    xbar = xh * dt[..., None]
+    s0 = initial_state["ssm"] if initial_state is not None else None
+    y, final_ssm = ssd_op(
+        xbar, a, _groups_of_heads(Bp.reshape(b, l, -1, n), h, cfg),
+        _groups_of_heads(Cp.reshape(b, l, -1, n), h, cfg), cfg.ssm_chunk, s0,
+    )
+    y = y + params["D"][:, None] * xh                            # skip
+    y = y.reshape(b, l, h * p).to(z.dtype)
+    state = {
+        "ssm": final_ssm,
+        # conv tails: the last (width-1) raw projections, for exact decode
+        "conv_x": _tail(xin_raw, tail),
+        "conv_B": _tail(Bp_raw, tail),
+        "conv_C": _tail(Cp_raw, tail),
+    }
+    return _gated_norm(y, z, params["norm"], cfg), state
+
+
+def mamba_mix_decode(params: Dict, z, xin, Bp, Cp, dt, state: Dict, cfg):
+    """``mamba_mix`` for one token (b, 1, .) from ``state`` (its conv
+    tails as wide as the projections they continue): the recurrent
+    update. Returns (y (b, 1, h*p), the new state)."""
+    b, _, h = dt.shape
+    p, n = cfg.ssm_head_dim, cfg.ssm_state
+    xin, conv_x = conv_decode_step(
+        state["conv_x"], xin, params["conv_x_w"], params["conv_x_b"]
+    )
+    Bp, conv_B = conv_decode_step(
+        state["conv_B"], Bp, params["conv_B_w"], params["conv_B_b"]
+    )
+    Cp, conv_C = conv_decode_step(
+        state["conv_C"], Cp, params["conv_C_w"], params["conv_C_b"]
+    )
+    xin = F.silu(xin)[:, 0]                                      # (b, h*p)
+    Bp = F.silu(Bp)[:, 0]
+    Cp = F.silu(Cp)[:, 0]
+    dt = F.softplus(dt[:, 0] + params["dt_bias"])                # (b, h)
+    a = -torch.exp(params["A_log"]) * dt
+    y, ssm = ssd_decode_step(
+        state["ssm"], xin.reshape(b, h, p), dt, a,
+        _groups_of_heads(Bp.reshape(b, -1, n), h, cfg),
+        _groups_of_heads(Cp.reshape(b, -1, n), h, cfg),
+    )
+    y = y + params["D"][:, None] * xin.reshape(b, h, p)
+    y = y.reshape(b, 1, h * p).to(z.dtype)
+    return _gated_norm(y, z, params["norm"], cfg), {
+        "ssm": ssm.to(state["ssm"].dtype),
+        "conv_x": conv_x.to(state["conv_x"].dtype),
+        "conv_B": conv_B.to(state["conv_B"].dtype),
+        "conv_C": conv_C.to(state["conv_C"].dtype),
+    }
+
+
 def mamba_block(
     params: Dict,
     x: torch.Tensor,                 # (b, l, d)
@@ -111,37 +205,9 @@ def mamba_block(
     """``initial_state`` and the returned state follow the
     ``init_ssm_state`` schema ({ssm, conv_x, conv_B, conv_C}), so prefill
     -> decode continuation is exact (SSM state + conv tails)."""
-    b, l, _ = x.shape
-    h, p, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-    tail = cfg.conv_width - 1
-    z, xin_raw, Bp_raw, Cp_raw, dt = _project(params, x, cfg)
-    xin = F.silu(causal_conv(xin_raw, params["conv_x_w"], params["conv_x_b"]))
-    xin = shard(xin, BATCH, None, MODEL)
-    Bp = F.silu(causal_conv(Bp_raw, params["conv_B_w"], params["conv_B_b"]))
-    Cp = F.silu(causal_conv(Cp_raw, params["conv_C_w"], params["conv_C_b"]))
-    dt = F.softplus(dt + params["dt_bias"])                      # (b, l, h)
-    a = -torch.exp(params["A_log"]) * dt                         # fp32
-    xh = xin.reshape(b, l, h, p)
-    xbar = xh * dt[..., None]
-    s0 = initial_state["ssm"] if initial_state is not None else None
-    y, final_ssm = ssd_op(
-        xbar, a, Bp.reshape(b, l, g, n), Cp.reshape(b, l, g, n),
-        cfg.ssm_chunk, s0,
-    )
-    y = y + params["D"][:, None] * xh                            # skip
-    y = y.reshape(b, l, h * p).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    y, state = mamba_mix(params, *_project(params, x, cfg), cfg, initial_state)
     out = (y @ params["w_out"]).to(x.dtype)
-    if return_state:
-        state = {
-            "ssm": final_ssm,
-            # conv tails: the last (width-1) raw projections, for exact decode
-            "conv_x": _tail(xin_raw, tail),
-            "conv_B": _tail(Bp_raw, tail),
-            "conv_C": _tail(Cp_raw, tail),
-        }
-        return out, state
-    return out
+    return (out, state) if return_state else out
 
 
 def init_ssm_state(cfg, batch: int, device=None) -> Dict:
@@ -163,34 +229,5 @@ def mamba_block_decode(
     state: Dict,            # from init_ssm_state
     cfg,
 ) -> Tuple[torch.Tensor, Dict]:
-    b = x.shape[0]
-    h, p, n, g = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_groups
-    z, xin, Bp, Cp, dt = _project(params, x, cfg)
-    xin, conv_x = conv_decode_step(
-        state["conv_x"], xin, params["conv_x_w"], params["conv_x_b"]
-    )
-    Bp, conv_B = conv_decode_step(
-        state["conv_B"], Bp, params["conv_B_w"], params["conv_B_b"]
-    )
-    Cp, conv_C = conv_decode_step(
-        state["conv_C"], Cp, params["conv_C_w"], params["conv_C_b"]
-    )
-    xin = F.silu(xin)[:, 0]                                      # (b, di)
-    Bp = F.silu(Bp)[:, 0]
-    Cp = F.silu(Cp)[:, 0]
-    dt = F.softplus(dt[:, 0] + params["dt_bias"])                # (b, h)
-    a = -torch.exp(params["A_log"]) * dt
-    y, ssm = ssd_decode_step(
-        state["ssm"], xin.reshape(b, h, p), dt, a,
-        Bp.reshape(b, g, n), Cp.reshape(b, g, n),
-    )
-    y = y + params["D"][:, None] * xin.reshape(b, h, p)
-    y = y.reshape(b, 1, h * p).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    out = (y @ params["w_out"]).to(x.dtype)
-    return out, {
-        "ssm": ssm.to(state["ssm"].dtype),
-        "conv_x": conv_x.to(state["conv_x"].dtype),
-        "conv_B": conv_B.to(state["conv_B"].dtype),
-        "conv_C": conv_C.to(state["conv_C"].dtype),
-    }
+    y, state = mamba_mix_decode(params, *_project(params, x, cfg), state, cfg)
+    return (y @ params["w_out"]).to(x.dtype), state

@@ -14,10 +14,12 @@ cache. With ``cfg.moe_ep`` the MoE channel is ``moe_ep.moe_ffn_ep``
 
 Under a mesh (``layers.use_mesh``) the residual stream is constrained to
 ``(BATCH, None, None)`` after each add, as in the JAX package, and the
-caches are DTensors in the layout the layers write them in: KV caches as
-``attention.kv_cache_spec``, SSM states replicated over ``model``
-(``_cache_spec``); ``run_blocks`` lays out caches that come in otherwise
-(e.g. from ``cache_shardings``) once, in the caller's list.
+caches are DTensors in the layout the layers write them in, JAX's
+``cache_pspec`` (``_cache_spec``): KV caches as
+``attention.kv_cache_spec``, SSM states by heads and conv tails by
+channels over ``model``. ``run_blocks`` lays out caches that come in
+otherwise once, in the caller's list; those from ``cache_shardings``
+already have it and pass through as they are.
 
 ``remat`` wraps each period in ``torch.utils.checkpoint`` (non-reentrant):
 its activations are recomputed in the backward pass, as JAX's
@@ -40,13 +42,16 @@ from .attention import (
     kv_seq_axes,
     self_attention,
 )
+from ..distributed.sharding import P
 from .layers import (
     BATCH,
     MODEL,
     _current_mesh,
+    all_gather,
     axis_index,
     lay_out,
     mlp_forward,
+    model_rank,
     pspec,
     rms_norm,
     shard,
@@ -54,17 +59,22 @@ from .layers import (
 )
 from .moe import moe_ffn
 from .moe_ep import moe_ffn_ep
-from .ssm import init_ssm_state, mamba_block, mamba_block_decode
+from .ssm import _project, init_ssm_state, mamba_mix, mamba_mix_decode
 
 
 def _cache_spec(name: str, shape, stacked: bool):
-    """A cache leaf's layout under the active mesh: KV as the attention
-    layers write it, SSM states and conv tails over the batch axes only.
-    ``stacked`` leaves carry the leading n_periods axis."""
+    """A cache leaf's layout under the active mesh, JAX's ``cache_pspec``:
+    KV as the attention layers write it; the SSM state (B, h, p, n) over
+    the batch axes and its heads over ``model``; a conv tail (B, w, ch)
+    over the batch axes and its channels over ``model`` (each where the
+    dimension divides). ``stacked`` leaves carry the leading n_periods
+    axis."""
     if name in ("k", "v"):
         return kv_cache_spec(shape)
     lead = (None,) if stacked else ()
-    return pspec(*lead, BATCH, *(None,) * (len(shape) - len(lead) - 1), dims=shape)
+    if name == "ssm":
+        return pspec(*lead, BATCH, MODEL, None, None, dims=shape)
+    return pspec(*lead, BATCH, None, MODEL, dims=shape)
 
 
 def _laid_out(name: str, a: torch.Tensor) -> torch.Tensor:
@@ -101,8 +111,14 @@ def _write_prefix(c: torch.Tensor, fresh: torch.Tensor, window: int) -> None:
     """Write prefix KV into cache ``c`` in place. For a ring buffer
     (window mode) only the last W positions survive, placed at slot =
     position % W so decode continues seamlessly. Where kv_seq_shard splits
-    the cache's positions, each rank writes its block of them."""
-    W = c.shape[1]
+    the cache's positions, each rank writes its block of them. A linear
+    cache (``window`` 0) takes at most W positions: a longer prefix raises
+    ``ValueError`` before any rank writes (the shapes are global, so every
+    rank raises alike), as JAX's ``dynamic_update_slice`` refuses it."""
+    W, S = c.shape[1], fresh.shape[1]
+    if not window and S > W:
+        raise ValueError(f"prefill of {S} positions into a linear KV cache of "
+                         f"{W} (max_len): S must be at most W")
     spec = kv_cache_spec(c.shape)
     seq = kv_seq_axes(spec)
 
@@ -120,30 +136,66 @@ def _write_prefix(c: torch.Tensor, fresh: torch.Tensor, window: int) -> None:
 
 
 def _ssm_mixer(p: Dict, h: torch.Tensor, cfg, mode: str, cache: Optional[Dict]):
-    """The Mamba2 mixer; in prefill and decode its SSM state and conv tails
-    replace the cache's in place. Under a mesh it runs in one
-    ``shard_map``, batch over the data axes and replicated over ``model``
-    (its weights gathered there), K4 on each rank's local batch."""
-    names, cnames = sorted(p), sorted(cache) if mode != "train" else []
+    """The Mamba2 mixer in the JAX package's layout; in prefill and decode
+    its SSM state and conv tails replace the cache's in place. Under a
+    mesh the projections are products of DTensors under the parameter
+    rules (``w_z``, ``w_x``, ``w_dt`` split by columns over ``model``,
+    ``w_B``/``w_C`` replicated); the convs, the scan (K4), the skip, the
+    gate and the norm run in one ``shard_map`` on each rank's local heads
+    and their channels (JAX's ``shard(xin, BATCH, None, MODEL)``), B and C
+    whole; ``w_out`` is split by rows, so the output comes out ``Partial``
+    and is summed where the residual is constrained. Heads that do not
+    divide ``model`` stay whole on every rank. The caches are in
+    ``_cache_spec``'s layout (JAX's ``cache_pspec``): a conv tail split by
+    channels where its projection is whole on the rank (``conv_B`` and
+    ``conv_C`` always) is gathered over ``model`` at decode, and each rank
+    writes back its own block."""
+    z, xin, Bp, Cp, dt = _project(p, h, cfg)
+    heads = pspec(BATCH, None, MODEL, dims=dt.shape)
+    chans = pspec(BATCH, None, heads[2], dims=z.shape)
+    whole = pspec(BATCH, None, None, dims=Bp.shape)
+    local = pspec(heads[2])
+    leaf_specs = {"conv_x_w": P(None, heads[2]), "conv_x_b": local, "dt_bias": local,
+                  "A_log": local, "D": local, "norm": local}
+    names = [k for k in sorted(p) if k.startswith("conv") or k in leaf_specs]
+    cnames = sorted(cache) if mode != "train" else []
 
-    def local(hl, *leaves):
+    def mix(zl, xl, Bl, Cl, dtl, *leaves):
         pl = dict(zip(names, leaves[:len(names)]))
         cl = dict(zip(cnames, leaves[len(names):]))
-        if mode == "train":
-            return mamba_block(pl, hl, cfg)
         if mode == "decode":
-            y, state = mamba_block_decode(pl, hl, cl, cfg)
+            width = {"conv_x": xl.shape[-1], "conv_B": Bl.shape[-1], "conv_C": Cl.shape[-1]}
+            state = {k: _gather_block(t, width.get(k)) for k, t in cl.items()}
+            y, state = mamba_mix_decode(pl, zl, xl, Bl, Cl, dtl, state, cfg)
         else:
-            y, state = mamba_block(pl, hl, cfg, return_state=True)
-        for name, t in state.items():
-            cl[name].copy_(t)
+            y, state = mamba_mix(pl, zl, xl, Bl, Cl, dtl, cfg)
+        for name in cnames:
+            _write_block(cl[name], state[name])
         return y
 
-    h_spec = pspec(BATCH, None, None, dims=h.shape)
-    specs = ((h_spec,) + tuple(pspec(*(None,) * p[k].ndim) for k in names)
+    specs = ((chans, chans, whole, whole, heads)
+             + tuple(leaf_specs.get(k, P(*(None,) * p[k].ndim)) for k in names)
              + tuple(_cache_spec(k, cache[k].shape, stacked=False) for k in cnames))
-    return shard_map(local, specs, h_spec, h, *(p[k] for k in names),
-                     *(cache[k] for k in cnames))
+    y = shard_map(mix, specs, chans, z, xin, Bp, Cp, dt, *(p[k] for k in names),
+                  *(cache[k] for k in cnames))
+    return (y @ p["w_out"]).to(h.dtype)
+
+
+def _gather_block(t: torch.Tensor, width: Optional[int]) -> torch.Tensor:
+    """A local conv tail (b, w, ch) as ``width`` channels: gathered over
+    ``model`` where the rank holds a block of them."""
+    if width is None or t.shape[-1] == width:
+        return t
+    return all_gather(t, t.dim() - 1, MODEL)
+
+
+def _write_block(c: torch.Tensor, t: torch.Tensor) -> None:
+    """Write state ``t`` into local cache leaf ``c``: whole, or this rank's
+    block of its last axis where ``c`` holds a block over ``model``."""
+    n = c.shape[-1]
+    if t.shape[-1] != n:
+        t = t[..., model_rank() * n:(model_rank() + 1) * n]
+    c.copy_(t)
 
 
 # ---------------------------------------------------------------------------

@@ -241,7 +241,16 @@ class FunctionalServer:
         tenant: str = "default",
     ) -> Request:
         """Queue a request. ``deadline_s`` is a relative TTFT budget,
-        converted to an absolute deadline on the server's clock."""
+        converted to an absolute deadline on the server's clock. A request
+        whose last decode step would write past ``max_len`` (prompt +
+        ``max_new_tokens`` - 1 > max_len) raises ``ValueError`` here and
+        never starts, as a server refuses one longer than its context."""
+        need = len(tokens) + max(max_new_tokens, 1) - 1     # prefill makes one
+        if need > self.max_len:
+            raise ValueError(
+                f"request of {len(tokens)} prompt tokens and {max_new_tokens} new "
+                f"needs {need} cache positions; the server's max_len is "
+                f"{self.max_len}")
         req = Request(
             tokens=np.asarray(tokens, np.int32),
             max_new_tokens=max_new_tokens,

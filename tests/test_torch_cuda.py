@@ -35,6 +35,7 @@ from repro_torch.kernels import (
     flash_attention_op_ref,
     flash_attention_ref,
     relay_assemble,
+    relay_assemble_op,
     relay_assemble_ref,
     ssd_chunk,
     ssd_chunk_op,
@@ -276,6 +277,15 @@ def test_ssd_chunk_tensor_cores_match_plain(dev, l, h, p, n, groups, chunk, deca
     random model's fast decays and Mamba2's slow ones."""
     assert tensor_cores_take(torch.bfloat16, chunk, p, n)
     _ssd_matches_plain(dev, torch.bfloat16, l, h, p, n, groups, chunk, decay, "tensor_cores")
+
+
+@pytest.mark.parametrize("which", [None, "tensor_cores"])
+@pytest.mark.parametrize("h", [16, 8, 2])
+def test_ssd_chunk_on_a_ranks_local_heads_matches_plain(dev, h, which):
+    """Mamba2-370m's prefill with its 32 heads split over a model axis of
+    2, 4 or 16: the head counts K4 takes under a mesh, Mamba2's slow
+    decays, on the default route and on the tensor cores."""
+    _ssd_matches_plain(dev, torch.bfloat16, 512, h, 64, 128, 1, 256, "slow", which)
 
 
 def test_ssd_chunk_cuda_cores_forced_at_the_served_shape(dev):
@@ -648,6 +658,43 @@ def test_kernels_without_a_gradient_refuse_one_on_the_card(dev):
 
 
 
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_relay_assemble_op_on_the_card(dev, use_kernel):
+    """The JAX package's op: K1 (one launch) or the plain version (none),
+    bit-exact against the plain version, a permutation with repeats."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    s = torch.randint(-2 ** 15, 2 ** 15, (37, 1000), dtype=torch.int16, device=dev,
+                      generator=g).view(torch.bfloat16)
+    perm = torch.randint(0, 37, (37,), device=dev, generator=g).to(torch.int32)
+    n = relay_assemble.launches
+    out = relay_assemble_op(s, perm, use_kernel=use_kernel)
+    assert relay_assemble.launches == n + int(use_kernel)
+    assert torch.equal(out.view(torch.int16), relay_assemble_ref(s, perm).view(torch.int16))
+
+
+@pytest.mark.parametrize("bound", ["prefill", "decode"])
+def test_linear_cache_bounds_refused_on_the_card(dev, bound):
+    """A prefill longer than a linear cache, and a decode step at a full
+    one, raise ValueError on the card before any cache is written (the
+    decode step before K2 is launched)."""
+    from repro_torch.kernels import launch_counts
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(), dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.randint(0, cfg.vocab, (2, 17), device=dev)
+    if bound == "prefill":
+        with pytest.raises(ValueError, match="prefill of 17 positions"):
+            prefill(params, toks, cfg, max_len=16)
+        return
+    _, caches, n = prefill(params, toks[:, :16], cfg, max_len=16)
+    kept = [c["k"].clone() for c in caches]
+    before = launch_counts()
+    with pytest.raises(ValueError, match="cache_len 16"):
+        decode_step(params, toks[:, 16], caches, n, cfg)
+    assert launch_counts()["decode_attention"] == before["decode_attention"]
+    assert all(torch.equal(k, c["k"]) for k, c in zip(kept, caches))
+
+
 @pytest.fixture
 def one_rank_mesh(dev):
     """A ("data", "model") = (1, 1) NCCL mesh over a world of one, ended
@@ -684,6 +731,40 @@ def test_stage_from_host_and_wakeup_reshard_bit_exact_on_the_card(one_rank_mesh,
         assert tuple(s.placements) == tuple(sh.placements)
         assert s.to_local().device == dev
         assert torch.equal(s.full_tensor().cpu(), h)
+
+
+def test_mamba2_under_a_one_rank_mesh_is_the_run_without_one(one_rank_mesh):
+    """Reduced Mamba2 in bf16 on the card with DTensor parameters under a
+    (1, 1) mesh (the mixer in the head-parallel layout, every placement
+    replicated): prefill (K4 once a layer) and 3 decode steps give the
+    logits and caches of the same calls without a mesh, bit for bit."""
+    from repro_torch.distributed import distribute, params_shardings
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import use_mesh
+
+    dev = torch.device("cuda", 0)
+    cfg = dataclasses.replace(get_config("mamba2-370m").reduced(), dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.randint(0, cfg.vocab, (2, 40), device=dev)
+
+    def run(p):
+        logits, caches, n = prefill(p, toks[:, :37], cfg, max_len=64)
+        out = [logits]
+        for i in range(3):
+            logits, caches = decode_step(p, toks[:, 37 + i], caches, n + i, cfg)
+            out.append(logits)
+        whole = lambda t: t.full_tensor() if hasattr(t, "full_tensor") else t
+        return [whole(t) for t in out + tree_leaves(caches)]
+
+    reset_launch_counts()
+    with use_mesh(one_rank_mesh):
+        meshed = run(distribute(params, params_shardings(params, one_rank_mesh)))
+    assert launch_counts()["ssd_chunk"] == cfg.n_layers
+    free = run(params)
+    assert len(meshed) == len(free)
+    for a, b in zip(meshed, free):
+        assert a.dtype == b.dtype == torch.bfloat16
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
 
 
 @pytest.mark.parametrize("S", [1, 512])

@@ -145,6 +145,35 @@ def test_sequence_sharded_kv_cache_spec_is_cache_pspec(B, mesh):
 
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
+@pytest.mark.parametrize("B", [32, 1])
+@pytest.mark.parametrize("name", ["mamba2-370m", "jamba-1.5-large-398b"])
+def test_model_cache_layout_is_cache_pspec(name, B, mesh):
+    """The layout the model keeps every cache leaf in (``_cache_spec``:
+    KV, the SSM state by heads and the conv tails by channels over
+    ``model``) is the one ``cache_pspec`` gives it, so caches laid out by
+    ``cache_shardings`` pass through ``run_blocks`` as they are. Not the KV
+    leaves at a batch the data axes do not divide (B = 1): there
+    ``cache_pspec`` puts the positions over ``data``, while the attention
+    layers keep JAX's ``shard_kv_cache`` layout (heads only), as JAX's own
+    model does."""
+    from repro_torch.models.layers import use_mesh
+    from repro_torch.models.transformer import _cache_spec
+
+    fake = TorchFakeMesh(*MESHES[mesh])
+    caches = init_caches(get_config(name), B, 4096, device="meta")
+    want = _torch_specs(caches, tsharding.cache_pspec, fake)
+    with use_mesh(fake):
+        got = {_key(p): tuple(_cache_spec(str(p[-1].key), leaf.shape, stacked=True))
+               for p, leaf in tree_leaves_with_path(caches)}
+    if B == 1:
+        want = {k: v for k, v in want.items() if not k.endswith(("/k", "/v"))}
+        got = {k: v for k, v in got.items() if k in want}
+    assert got == want
+    ssm = [v for k, v in got.items() if k.endswith("/ssm")]
+    assert ssm and all(v[2] == "model" for v in ssm)       # heads over model
+
+
+@pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_data_pspec_equals_jax(mesh):
     shape, names = MESHES[mesh]
     for s in [(), (32,), (32, 4096), (1, 4096), (64, 8, 3), (48, 2)]:
@@ -237,7 +266,7 @@ import numpy as np
 import jax, jax.numpy as jnp
 from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
 from repro.configs import get_config
-from repro.distributed.sharding import batch_shardings, params_shardings
+from repro.distributed.sharding import batch_shardings, cache_shardings, params_shardings
 from repro.models import decode_step, init_params, prefill
 from repro.models.moe import moe_ffn
 from repro.models.moe_ep import moe_ffn_ep
@@ -304,6 +333,19 @@ for name, (arch, over, eps) in MODELS.items():
             lg, caches = dec(params, nxt[:, i], caches, n + i)
             steps.append(lg)
     out[f"{name}/logits"] = np.stack([np.asarray(s) for s in steps])
+    # each mesh position's box of every cache leaf in cache_pspec's layout
+    cboxes = {}
+    for i, c in enumerate(caches):
+        for leaf, a in c.items():
+            a = jax.device_put(np.asarray(a), cache_shardings({leaf: a}, mesh)[leaf])
+            by_dev = {s.device.id: s.index for s in a.addressable_shards}
+            cboxes[f"{i}/{leaf}"] = [
+                [[sl.start or 0, a.shape[d] if sl.stop is None else sl.stop]
+                 for d, sl in enumerate(by_dev[mesh.devices[pos].id])]
+                for pos in np.ndindex(mesh.devices.shape)]
+    out[f"{name}/cache_boxes"] = np.frombuffer(json.dumps(cboxes).encode(), np.uint8)
+    if eps is None:                 # held at prefill and decode only
+        continue
     opt = init_adamw(params)
     step = make_train_step(cfg, TrainConfig(remat=True, opt=AdamWConfig(eps=eps)))
     bt = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
@@ -333,14 +375,14 @@ for name, (arch, over, B) in SEQ_MODELS.items():
     for i, l in enumerate(jax.tree.leaves(params)):
         out[f"{name}/p{i}"] = np.asarray(l)
     toks = rng.integers(0, cfg.vocab, (B, 13)).astype(np.int32)
-    nxt = rng.integers(0, cfg.vocab, (B, 2)).astype(np.int32)
+    nxt = rng.integers(0, cfg.vocab, (B, 3)).astype(np.int32)
     out[f"{name}/toks"], out[f"{name}/next"] = toks, nxt
     OPT["kv_seq_shard"] = True
     with mesh:
         lg, caches, n = jax.jit(lambda p, t: prefill(p, t, cfg, max_len=16))(params, toks)
         steps = [lg]
         dec = jax.jit(lambda p, t, c, n: decode_step(p, t, c, n, cfg))
-        for i in range(2):
+        for i in range(3):              # the last writes the cache's last slot
             lg, caches = dec(params, nxt[:, i], caches, n + i)
             steps.append(lg)
     OPT["kv_seq_shard"] = False
@@ -432,11 +474,26 @@ def work(rank, port, ref_path, out_path):
                  "vs_jax": rel(full(y1), ref[f"ep{cfg.capacity_factor}/moe_ffn"])}
 
     # the models under the mesh
+    import repro_torch.models.ssm as ssm
+    from unittest import mock
+
+    def box(t):
+        """This rank's box of DTensor ``t``, gathered from every rank."""
+        x = torch.arange(t.numel()).reshape(t.shape)
+        loc = DTensor.from_local(x, mesh, [Replicate()] * 2,
+                                 run_check=False).redistribute(mesh, t.placements).to_local()
+        first = np.unravel_index(int(loc.flatten()[0]), x.shape)
+        got = [None] * 8
+        dist.all_gather_object(got, [[int(c), int(c) + n] for c, n in zip(first, loc.shape)])
+        return got
+
     for name, (arch, over, eps) in MODELS.items():
         cfg = dataclasses.replace(get_config(arch).reduced(), **over)
         tmpl = abstract_params(cfg)
         host = tree_unflatten(tmpl, [arr(f"{name}/p{i}") for i in range(len(tree_leaves(tmpl)))])
-        with use_mesh(mesh):
+        heads, ssd = set(), ssm.ssd_op
+        with use_mesh(mesh), mock.patch.object(
+                ssm, "ssd_op", lambda x, *a: heads.add(x.shape[2]) or ssd(x, *a)):
             params = distribute(host, params_shardings(host, mesh))
             nxt = torch.from_numpy(ref[f"{name}/next"]).long()
             lg, caches, n = prefill(params, torch.from_numpy(ref[f"{name}/toks"]).long(),
@@ -445,12 +502,21 @@ def work(rank, port, ref_path, out_path):
             for i in range(2):
                 lg, caches = decode_step(params, nxt[:, i], caches, n + i, cfg)
                 steps.append(full(lg))
+        want = json.loads(bytes(ref[f"{name}/cache_boxes"]).decode())
+        res[name] = {
+            "logits": max(rel(s, j) for s, j in zip(steps, ref[f"{name}/logits"])),
+            "k4_local_heads": sorted(heads),
+            "cache_boxes": {f"{i}/{k}": box(a) == want[f"{i}/{k}"]
+                            for i, c in enumerate(caches) for k, a in c.items()},
+        }
+        if eps is None:             # held at prefill and decode only
+            continue
+        with use_mesh(mesh):
             step = make_train_step(cfg, TrainConfig(remat=True, opt=AdamWConfig(eps=eps)))
             bt = torch.from_numpy(ref[f"{name}/batch"]).long()
             new_p, _, metrics = step(params, init_adamw(params), {"tokens": bt, "labels": bt})
         names = json.loads(bytes(ref[f"{name}/names"]).decode())
-        res[name] = {
-            "logits": max(rel(s, j) for s, j in zip(steps, ref[f"{name}/logits"])),
+        res[name].update({
             "loss": rel(metrics["loss"], ref[f"{name}/loss"]),
             "free_loss": rel(metrics["loss"], ref[f"{name}/free_loss"]),
             "params": {n: rel(full(p), ref[f"{name}/new{i}"])
@@ -461,10 +527,22 @@ def work(rank, port, ref_path, out_path):
                                  for i, n in enumerate(names)},
             "placed": all(tuple(p.placements) == tuple(s.placements) for p, s in zip(
                 tree_leaves(new_p), tree_leaves(params_shardings(host, mesh)))),
-        }
+        })
 
     # the sequence-sharded KV cache
     from repro_torch.distributed.sharding import OPT
+
+    def refuses(call):
+        """Whether ``call`` raises ValueError on this rank, from every rank."""
+        try:
+            call()
+            ok = False
+        except ValueError:
+            ok = True
+        got = [None] * 8
+        dist.all_gather_object(got, ok)
+        return got
+
     for name, (arch, over, B) in SEQ_MODELS.items():
         cfg = dataclasses.replace(get_config(arch).reduced(), **over)
         tmpl = abstract_params(cfg)
@@ -478,17 +556,28 @@ def work(rank, port, ref_path, out_path):
                                         cfg, max_len=16)
                 placed = str(list(caches[0]["k"].placements))
                 steps = [full(lg)]
-                for i in range(2):
+                for i in range(3):      # the last writes the cache's last slot
                     lg, caches = decode_step(params, nxt[:, i], caches, n + i, cfg)
                     steps.append(full(lg))
                 ck = caches[0]["k"]
                 local_t = ck.to_local().shape[2]
                 ck = full(ck)
+                # the full cache: a decode past it and a longer prefill raise on every rank
+                over_seq = [refuses(lambda: decode_step(params, nxt[:, 0], caches, n + 3, cfg)),
+                            refuses(lambda: prefill(params, torch.zeros((B, 17), dtype=torch.long),
+                                                    cfg, max_len=16))]
         finally:
             OPT["kv_seq_shard"] = False
+        with use_mesh(mesh):            # the same bounds with the option off
+            toks = torch.zeros((B, 16), dtype=torch.long)
+            _, full_caches, _ = prefill(params, toks, cfg, max_len=16)
+            over_heads = [refuses(lambda: decode_step(params, nxt[:, 0], full_caches, 16, cfg)),
+                          refuses(lambda: prefill(params, torch.zeros((B, 17), dtype=torch.long),
+                                                  cfg, max_len=16))]
         res[name] = {"logits": max(rel(s, j) for s, j in zip(steps, ref[f"{name}/logits"])),
                      "cache_k": rel(ck, ref[f"{name}/cache_k"]),
-                     "placements": placed, "local_positions": local_t}
+                     "placements": placed, "local_positions": local_t,
+                     "refused_kv_seq_shard": over_seq, "refused": over_heads}
 
     # the wake-up and KV-fetch reshards
     eng = make_functional_engine(devices=[torch.device("cpu")],
@@ -549,9 +638,16 @@ CAPACITY_FACTORS = (64.0, 1.25)     # no drops; the config's own, which drops
 # summation order) into a visible share of lr. Mamba2's A_log and biases
 # have such entries, so its step is held with eps = 1, where the update is
 # smooth in g (as tests/test_torch_training.py holds the train step).
+# An eps of None holds a model at prefill and decode only (no train step).
 MODELS = {"olmoe": ("olmoe-1b-7b", {"moe_ep": True}, 1e-8),
           "tinyllama_g2": ("tinyllama-1.1b", {"n_kv_heads": 2}, 1e-8),   # H 4 on m 4, G 2
-          "mamba2": ("mamba2-370m", {}, 1.0)}                            # K4 per local batch
+          "mamba2": ("mamba2-370m", {}, 1.0),           # K4 on 16 / 4 local heads a rank
+          # two B/C groups: a rank's 4 heads lie inside one group of 8
+          "mamba2_g2": ("mamba2-370m", {"ssm_groups": 2}, None),
+          # one period of the hybrid plan without MoE: attention's and the
+          # SSM's layouts meet in one period (1 attn + 7 ssm layers)
+          "jamba_period": ("jamba-1.5-large-398b", {"n_experts": 0, "n_layers": 8}, None)}
+TRAINED = sorted(k for k, v in MODELS.items() if v[2] is not None)
 # name: (config, overrides, batch) run with OPT["kv_seq_shard"] on in both
 # packages: TinyLlama with 2 KV heads on a model axis of 4, so the caches'
 # 16 positions go over ``model`` (4 a rank) where the data axis divides the
@@ -620,6 +716,27 @@ def test_mesh_prefill_and_decode_match_jax(mesh_runs, name):
     assert r["logits"] <= 2e-4, r
 
 
+@pytest.mark.parametrize("name", sorted(MODELS))
+def test_mesh_caches_sit_in_cache_pspec_boxes(mesh_runs, name):
+    """After prefill and two decode steps every cache leaf (KV, SSM state,
+    conv tails) is held by each rank in the box that JAX's device at its
+    mesh position holds under ``cache_shardings``."""
+    boxes = mesh_runs[1][name]["cache_boxes"]
+    assert boxes and all(boxes.values()), boxes
+
+
+@pytest.mark.parametrize("name", ["mamba2", "mamba2_g2", "jamba_period"])
+def test_mesh_ssm_runs_k4_on_local_heads(mesh_runs, name):
+    """Mamba2's mixer is head-parallel on (2, 4): each rank's K4 (through
+    ``ssd_op``) sees h / 4 of the reduced config's h heads."""
+    arch, over, _ = MODELS[name]
+    import dataclasses
+
+    h = dataclasses.replace(get_config(arch).reduced(), **over).ssm_heads
+    assert h % 4 == 0 and h > 4             # a layout that is really split
+    assert mesh_runs[1][name]["k4_local_heads"] == [h // 4]
+
+
 @pytest.mark.parametrize("name,placements,local_positions", [
     ("tinyllama_seq_b2", "[Shard(dim=1), Shard(dim=2)]", 4),
     ("tinyllama_seq_b1", "[Shard(dim=2), Shard(dim=2)]", 2),
@@ -637,6 +754,17 @@ def test_sequence_sharded_cache_prefill_and_decode_match_jax(mesh_runs, name, pl
     assert r["logits"] <= 2e-4 and r["cache_k"] <= 2e-4, r
 
 
+@pytest.mark.parametrize("name", sorted(SEQ_MODELS))
+def test_linear_cache_bounds_refused_on_every_rank(mesh_runs, name):
+    """With the cache full (16 of 16 positions) a decode step raises
+    ``ValueError`` on all 8 ranks, and so does a 17-token prefill into 16
+    slots, with kv_seq_shard on (positions split over ``model``) and off;
+    no rank carries on into a collective the others left."""
+    r = mesh_runs[1][name]
+    assert r["refused_kv_seq_shard"] == [[True] * 8] * 2, r
+    assert r["refused"] == [[True] * 8] * 2, r
+
+
 # JAX's sharded step gives Mamba2's conv_B_w and conv_C_w (replicated
 # (w, g*n) leaves feeding a model-sharded computation) 4x, the model axis'
 # size, their mesh-free gradient, which moves every leaf through the global
@@ -645,7 +773,7 @@ def test_sequence_sharded_cache_prefill_and_decode_match_jax(mesh_runs, name, pl
 JAX_MESH_GRAD_FAULT = {"mamba2"}
 
 
-@pytest.mark.parametrize("name", sorted(MODELS))
+@pytest.mark.parametrize("name", TRAINED)
 def test_mesh_train_step_matches_jax(mesh_runs, name):
     """One AdamW step on (2, 4) against JAX's on its Auto mesh: the loss
     within 1e-5 relative, every updated leaf within 1e-4 of its largest

@@ -123,3 +123,43 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                              timeout=120)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+def _top_level_names(path: Path):
+    """(public names a module defines, every name it binds by import)."""
+    defined, imported = set(), set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            defined.add(node.name)
+        elif isinstance(node, ast.Assign):
+            defined |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            defined.add(node.target.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            imported |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return {n for n in defined if not n.startswith("_")}, imported
+
+
+# The JAX data plane, which core/torch_backend.py replaces
+JAX_DATA_PLANE = {"core/jax_backend.py"}
+
+
+def test_every_public_name_of_the_jax_package_has_a_counterpart():
+    """Each top-level public name that a module of src/repro defines (a
+    function, class or constant) is bound in the port's module of the same
+    path, by definition or import; only the JAX data plane has no
+    counterpart module."""
+    jax_root = ROOT / "src" / "repro"
+    missing = {}
+    for jf in sorted(jax_root.rglob("*.py")):
+        rel = jf.relative_to(jax_root).as_posix()
+        tf = PORT / rel
+        if rel in JAX_DATA_PLANE:
+            assert not tf.exists()
+            continue
+        assert tf.exists(), rel
+        want = _top_level_names(jf)[0]
+        got = set.union(*_top_level_names(tf))
+        if want - got:
+            missing[rel] = sorted(want - got)
+    assert missing == {}

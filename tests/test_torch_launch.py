@@ -385,6 +385,8 @@ rs += [dryrun_one("gemma-7b", "decode_32k", multi_pod=mp, verbose=False)
        for mp in (False, True)]
 OPT["kv_seq_shard"] = True
 rs.append(dryrun_one("tinyllama-1.1b", "decode_32k", verbose=False))
+OPT["kv_seq_shard"] = False
+rs += [dryrun_one("mamba2-370m", s, verbose=False) for s in ("decode_32k", "prefill_32k")]
 print("PORT " + json.dumps(rs))
 """
 
@@ -427,6 +429,19 @@ r["shard_bytes"] = shard_bytes(pairs)
 OPT["kv_seq_shard"] = True              # the caches' sequence axis over model
 r["shard_bytes_kv_seq_shard"] = shard_bytes(
     pairs[:2] + [(specs["caches"], cache_shardings(specs["caches"], mesh))] + pairs[3:])
+OPT["kv_seq_shard"] = False
+# Mamba2: the SSM state by heads and the conv tails by channels over model
+r["mamba2"] = {}
+for name in ("decode_32k", "prefill_32k"):
+    m = jd.dryrun_one("mamba2-370m", name, verbose=False)
+    mcfg = get_config("mamba2-370m", shape=name)
+    mspecs = input_specs(mcfg, INPUT_SHAPES[name])
+    mparams = abstract_params(mcfg)
+    m["shard_bytes"] = shard_bytes(
+        [(mparams, params_shardings(mparams, mesh))]
+        + [(v, cache_shardings(v, mesh) if k == "caches" else replicated(mesh)
+            if k == "cache_len" else batch_shardings(v, mesh)) for k, v in mspecs.items()])
+    r["mamba2"][name] = m
 print("JAX " + json.dumps(r))
 """
 
@@ -467,6 +482,17 @@ def test_dryrun_argument_bytes_equal_jax_shards(dryruns):
           f"JAX {jx['memory_analysis']['output_size_in_bytes']}")
     assert port["kind"] == jx["kind"] == "decode"
     assert port["model_flops"] == jx["model_flops"]
+    # Mamba2's caches and inputs in JAX's layout: the same shard bytes
+    for port, (name, jx) in zip(dryruns["PORT"][5:7], sorted(dryruns["JAX"]["mamba2"].items())):
+        assert port["shape"] == name and port["ok"] and jx["ok"], (port, jx)
+        assert port["memory_analysis"]["argument_size_in_bytes"] == jx["shard_bytes"], name
+        for key in ("flops_per_device", "hbm_bytes_per_device",
+                    "collective_bytes_per_device"):
+            print(f"mamba2-370m x {name} {key}: port {port[key]:.6g}, JAX {jx[key]:.6g}")
+        print(f"mamba2-370m x {name} collectives: port {port['collective_counts']}, "
+              f"JAX {jx['collective_counts']}; argument bytes: port "
+              f"{port['memory_analysis']['argument_size_in_bytes']}, JAX "
+              f"{jx['memory_analysis']['argument_size_in_bytes']}")
 
 
 def test_dryrun_of_gemma_with_256_wide_heads(dryruns):
@@ -476,6 +502,18 @@ def test_dryrun_of_gemma_with_256_wide_heads(dryruns):
     assert r1["ok"] and r2["ok"] and (r1["arch"], r1["shape"]) == ("gemma-7b", "decode_32k")
     assert (r1["n_chips"], r2["n_chips"]) == (256, 512)
     assert r1["flops_per_device"] > 0 and r2["flops_per_device"] > 0
+
+
+def test_dryrun_of_mamba2_decode_moves_no_weights(dryruns):
+    """mamba2-370m x decode_32k on 16 x 16 with the mixer head-parallel:
+    no layer gathers its weights; each reduces ``w_out``'s partial output
+    over ``model`` (one all-reduce a layer) and gathers its B/C conv tails
+    and the norm's sums, a few MB a device in all."""
+    port = dryruns["PORT"][5]
+    assert (port["arch"], port["shape"], port["mesh"]) == ("mamba2-370m", "decode_32k",
+                                                           "16x16")
+    assert port["collective_counts"]["all-reduce"] == 48
+    assert port["collective_bytes_per_device"] < 1e7
 
 
 def test_dryrun_kv_seq_shard_argument_bytes_equal_jax_shards(dryruns):

@@ -34,10 +34,10 @@ Phases, one result line each:
              alternating rounds; K3 and K2 in bf16 beside the JAX package's
              gqa (its roundings) at TinyLlama's prefill and decode and
              gemma's D = 256 decode, with their plain versions' gaps; K4 on
-             its default route (the CUDA cores, which the model takes) and,
-             for every bf16 case they take, on the tensor cores; at the
-             served shape timed on both and inside ssd_op (K4 + the
-             inter-chunk scan + y_off) on both
+             its default route (the tensor cores for the bf16 shapes they
+             take, which the model takes) and on the other route where it
+             takes the case; at the served shape timed on both and inside
+             ssd_op (K4 + the inter-chunk scan + y_off) on both
   transfer   multipath_device_put / _get of a 1 GiB pinned bf16 tensor, bit-exact,
              over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
   serve      the dense path: TinyLlama-1.1B at full width in bf16 (random weights
@@ -47,7 +47,11 @@ Phases, one result line each:
              one and a request past the server's max_len must each raise
   serve-ssm  the SSM path: Mamba2-370m at full width in bf16, the same round
              trip and requests, prefill through K4 (every launch on its
-             default route) and recurrent decode
+             default route, the tensor cores) and recurrent decode; every
+             ssd_op call of the first request's prefill held to its plain
+             version on the same inputs (y and the final state), and that
+             prefill and 8 decode steps with K4 forced onto the CUDA cores
+             held to the plain path's logits
   serve-moe  the MoE path: OLMoE-1B-7B at full width and depth in bf16 (13.84
              GB), the same round trip and requests, prefill through K3 and
              decode through K2 (16 launches each per prefill and per decode
@@ -70,8 +74,9 @@ Phases, one result line each:
              of the step without a mesh; then Mamba2-370m at full width and
              depth under the mesh (path dist-mamba2): the mixer
              head-parallel in the JAX layout, a 512-token prefill (cold and
-             warm, K4 48 times each) and 8 decode steps, logits and every
-             cache leaf equal bit for bit to the same calls without a mesh
+             warm, K4 48 times each on the tensor cores) and 8 decode steps,
+             logits and every cache leaf equal bit for bit to the same
+             calls without a mesh
   serve-vlm  cross-attention: llama-3.2-vision-90b at full width cut to 2
              periods (10 layers, 21.3 GB), the same round trip, then prefill
              and 31 greedy decode steps with a (1, 576, 8192) frontend for
@@ -240,9 +245,11 @@ def phase_build(out_dir):
     spills = [l.strip() for l in str(info.get("log", "")).splitlines()
               if "spill" in l and not l.strip().startswith("0 bytes")
               and " 0 bytes spill stores, 0 bytes spill loads" not in l]
+    serialized = [l.strip() for l in str(info.get("log", "")).splitlines()
+                  if "wgmma" in l and "serialized" in l]
     report("build", nvcc_s="cached" if info["cached"] else round(info["seconds"], 3),
            load_s=round(time.monotonic() - t0, 3), library=Path(info["path"]).name,
-           spill_lines=spills[:8])
+           spill_lines=spills[:8], wgmma_serialized=serialized[:8])
 
 
 def _relay_leaf(dev, gen, elems, reps, rounds=0):
@@ -751,8 +758,8 @@ def _ssd_case(dev, gen):
     # then, in bf16, the other tensor-core shapes: a ragged length, jamba's
     # N = 16, chunks of 64 and 128 (over 1024 positions, so that their slow
     # draws reach 5x the tolerance in some chunk). Each case runs on the
-    # default route, which the model takes, and, where they take the shape,
-    # on the tensor cores.
+    # default route, which the model takes, and on the other route where it
+    # takes the shape.
     cases = [(dtype, l, h, groups, decay, 128, 256)
              for dtype in (torch.bfloat16, torch.float32)
              for l, h, groups, decay in ((512, 32, 1, "fast"), (200, 32, 1, "fast"),
@@ -772,8 +779,8 @@ def _ssd_case(dev, gen):
               f"ssd_chunk {dtype} l={l} chunk={chunk} {decay}: the case cannot see "
               f"distant work")
         default = route(dtype, chunk, x.shape[-1], n)
-        routes = [default] + ["tensor_cores"] * (
-            default != "tensor_cores" and tensor_cores_take(dtype, chunk, x.shape[-1], n))
+        routes = [default] + [r for r in ("tensor_cores", "cuda_cores") if r != default and (
+            r == "cuda_cores" or tensor_cores_take(dtype, chunk, x.shape[-1], n))]
         for which in routes:
             before = dict(ssd_chunk.route_launches)
             out = ssd_chunk_op(x, a, B, C, chunk, which=which)
@@ -806,8 +813,9 @@ def _ssd_case(dev, gen):
     moved = nbytes(x, a, B, C, *out)
     sass = build.sass_counts("ssd_chunk_tc", ("HGMMA", "HMMA"))
     print(f"  ssd_chunk bf16 tensor-core kernel SASS: {sass}", flush=True)
-    check(sass is None or (sass and all(c["HGMMA"] > 0 for c in sass.values())),
-          f"K4's tensor-core kernel has no HGMMA instruction: {sass}")
+    check(sass is None or (sass and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                                        for c in sass.values())),
+          f"K4's tensor-core kernel has no HGMMA instruction, or an HMMA: {sass}")
     row = {
         "name": "ssd_chunk", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_chunk.cu",
@@ -815,14 +823,14 @@ def _ssd_case(dev, gen):
         "shape": f"x ({b}, {l}, {h}, {P}) bf16, a fp32, B,C ({b}, {l}, {g}, {N}) bf16, "
                  f"chunk {Q}",
         # "ms" and "ssd_op_ms" time the route the served path takes, which
-        # "launches" counts; "tensor_cores_ms" the tensor-core kernel, forced
+        # "launches" counts; "cuda_cores_ms" the CUDA-core kernel, forced
         "served_route": served,
         "max_abs_err": worst[served, torch.bfloat16],
         "max_abs_err_f32": worst[route(torch.float32, Q, P, N), torch.float32],
-        "max_abs_err_tensor_cores": worst["tensor_cores", torch.bfloat16],
+        "max_abs_err_cuda_cores": worst["cuda_cores", torch.bfloat16],
         **timed("ms", lambda: ssd_chunk_op(x, a, B, C, Q), 20),
-        **timed("tensor_cores_ms",
-                lambda: ssd_chunk_op(x, a, B, C, Q, which="tensor_cores"), 20),
+        **timed("cuda_cores_ms",
+                lambda: ssd_chunk_op(x, a, B, C, Q, which="cuda_cores"), 20),
         **timed("plain_ms", lambda: ssd_chunk_op_ref(x, a, B, C, Q), 20),
         **timed("ssd_op_ms", lambda: ssd_op(x, a, B, C, Q), 20),
         "library_ms": None,            # no single PyTorch call computes it
@@ -831,25 +839,24 @@ def _ssd_case(dev, gen):
         else "bytes",
         "sass": sass,
     }
-    with _tensor_cores_in_ssd_op():
-        row.update(timed("ssd_op_tensor_cores_ms", lambda: ssd_op(x, a, B, C, Q), 20))
+    with _ssd_op_on("cuda_cores"):
+        row.update(timed("ssd_op_cuda_cores_ms", lambda: ssd_op(x, a, B, C, Q), 20))
     print(f"  ssd_chunk served shape: ms={row['ms']:.5f} ({served}) "
-          f"tensor_cores_ms={row['tensor_cores_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
+          f"cuda_cores_ms={row['cuda_cores_ms']:.5f} plain_ms={row['plain_ms']:.5f} "
           f"ssd_op_ms={row['ssd_op_ms']:.5f} "
-          f"ssd_op_tensor_cores_ms={row['ssd_op_tensor_cores_ms']:.5f} "
+          f"ssd_op_cuda_cores_ms={row['ssd_op_cuda_cores_ms']:.5f} "
           f"bound_ms={row['bound_ms']:.6f}", flush=True)
     return row
 
 
-def _tensor_cores_in_ssd_op():
-    """``ssd_op`` (and so the model) with K4 forced onto the tensor cores:
-    for measurement, not for serving."""
+def _ssd_op_on(which: str):
+    """``ssd_op`` (and so the model) with K4 forced onto route ``which``."""
     import functools
     import importlib
 
     ops = importlib.import_module("repro_torch.kernels.ssd_chunk.ops")
     return mock.patch.object(ops, "ssd_chunk_op",
-                             functools.partial(ops.ssd_chunk_op, which="tensor_cores"))
+                             functools.partial(ops.ssd_chunk_op, which=which))
 
 
 def _gqa_gaps(dev, gen, kind, B, H, G, D, T, kv_len=None):
@@ -965,7 +972,7 @@ def phase_transfer(dev):
 # ---------------------------------------------------------------------------
 def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
            page_size=16, state_leaf=None, state_probe=None, compare=None,
-           kernel_path=contextlib.nullcontext, gate_logits=True):
+           kernel_path=contextlib.nullcontext, gate_logits=True, gate_path=None):
     """Drive ``model`` at full width in bf16 through the main path: random
     weights from seed 0, a WeightManager sleep/wake round trip, and a
     FunctionalServer answering 4 requests of 512, 384, 512 (the repeat) and
@@ -987,8 +994,12 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
     and decode logits errors without holding them to 2e-2, for a model
     whose own sensitivity puts a plain version perturbed far below one
     bf16 ulp past that limit; the caller then holds each kernel call to its
-    plain version on the same inputs instead. Returns the launch counts of
-    the main path and the result fields."""
+    plain version on the same inputs instead. ``gate_path`` is a context
+    under which the first request's prefill and decode steps run once more
+    (its kernels' launches counted apart, in ``gate_path_launches``), their
+    logits held to 2e-2 of the plain path's as ``gate_logits`` holds the
+    main ones. Returns the launch counts of the main path and the result
+    fields."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
     from repro_torch.models import decode_step, prefill
@@ -1063,6 +1074,26 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
               f"decode logits differ from the plain path: {dec_rel:.3e} of max")
     check(torch.argmax(dec, -1).tolist() == reqs[0].generated[1:9],
           "the kernels' decode steps do not give the served tokens")
+    gated = {}
+    if gate_path is not None:
+        before = {**launch_counts(), **route_counts()}
+        with gate_path():
+            g_logits, g_caches, _ = prefill(params, toks, cfg, max_len=1024)
+            g_dec = decode_steps(g_caches)
+        g_counts = {k: v - before[k] for k, v in {**launch_counts(), **route_counts()}.items()}
+        gated = dict(
+            gate_path_logits_rel_err=max_err(g_logits, plain) / plain.float().abs().max().item(),
+            gate_path_decode_logits_rel_err=max(
+                max_err(a, b) / b.float().abs().max().item() for a, b in zip(g_dec, dec_plain)),
+            gate_path_launches={k: v for k, v in g_counts.items() if v})
+        print(f"  {cfg.name} on the gate path against the plain path: prefill logits "
+              f"{gated['gate_path_logits_rel_err']:.3e}, decode logits "
+              f"{gated['gate_path_decode_logits_rel_err']:.3e}; launches "
+              f"{gated['gate_path_launches']}", flush=True)
+        check(gated["gate_path_logits_rel_err"] <= 2e-2,
+              f"prefill logits on the gate path differ from the plain path: {gated}")
+        check(gated["gate_path_decode_logits_rel_err"] <= 2e-2,
+              f"decode logits on the gate path differ from the plain path: {gated}")
     state = {}
     if state_leaf is not None:
         check(len(state_errs) == cfg.n_layers and max(state_errs) <= 2e-2,
@@ -1087,7 +1118,7 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
         ttft_ms=[r.ttft * 1e3 for r in reqs], hit_tokens=[r.hit_tokens for r in reqs],
         tokens=n_tokens, serve_s=serve_s, tokens_per_s=n_tokens / serve_s,
         main_path_s=main_s, peak_mem_GB=peak / 1e9,
-        logits_rel_err=rel, decode_logits_rel_err=dec_rel, **state, **extra,
+        logits_rel_err=rel, decode_logits_rel_err=dec_rel, **gated, **state, **extra,
         transfer_log=srv.transfer_log, launches=counts)
 
 
@@ -1333,20 +1364,35 @@ def phase_serve(dev):
 
 def phase_serve_ssm(dev):
     """Mamba2-370m: prefill through K4 (48 launches per request, one per
-    layer, all on K4's default route, ``ssd_chunk.route``), recurrent
-    decode, wake through K1. Each layer's final SSM state from the prefill
-    is held to the plain version's on the same layer inputs (2e-2 in the
-    Frobenius norm), which holds K4's final state and not only its y;
-    decode is compared from each path's own prefill state.
-    Also reported, not checked, the prefill logits against the plain path
-    (``logits_rel_err_*``): the plain path run again; the plain version
-    with its y_diag given relative noise of 1e-8 to 3e-6 before its bf16
-    rounding, which measures how far this random-weight model carries a
-    rounding; K4 forced onto the tensor cores, for all its outputs, for
-    y_diag alone and for the states and out_decay alone."""
+    layer, all on K4's default route, ``ssd_chunk.route``: the tensor
+    cores), recurrent decode, wake through K1. Gated, on the first
+    request's prefill: every ``ssd_op`` call of the model against
+    ``ssd_op_ref`` on the same inputs (``_ssd_probe``: y within 2e-2 of
+    max |y|, the final state within 2e-2 in the Frobenius norm, which holds
+    K4's states and not only its y); and, with K4 forced onto the CUDA
+    cores (``gate_path``, 48 launches counted apart), the prefill and decode
+    logits within 2e-2 of the plain path, decode compared from each path's
+    own prefill state. That logits check moved off the served route: the
+    plain version itself, given 3e-8 of relative noise in its y_diag, reads
+    past 2e-2 on this random-weight model, so it cannot tell one bf16
+    rounding of the tensor cores from a fault, and holds only the CUDA-core
+    kernel, which repeats the plain version's fp32 arithmetic.
+    Also reported, not checked, the served logits against the plain path
+    (``logits_rel_err``) and ``logits_rel_err_*``: the plain path run again;
+    the plain version with its y_diag given relative noise of 1e-8 to 3e-6
+    before its bf16 rounding, which measures how far this random-weight
+    model carries a rounding; K4 on the tensor cores for all its outputs,
+    for y_diag alone and for the states and out_decay alone; the first
+    prompt's warm prefill on each route, alternating, 5 rounds
+    (``prefill_ms_by_route``); and, beside the probe's readings, the
+    largest weight a key 64 or more positions back has in any probed call
+    (``far_key_weight``: where it is 0, no fault in K4's far key tiles can
+    show on this model, and only the kernels phase's slow cases hold
+    them)."""
     import importlib
 
     import repro_torch.models.ssm as ssm
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_op_ref
     from repro_torch.kernels.ssd_chunk.ssd_chunk import route
     from repro_torch.models import prefill
@@ -1381,25 +1427,58 @@ def phase_serve_ssm(dev):
                 logits = prefill(params, toks, ssm_cfg, max_len=1024)[0]
             return max_err(logits, plain) / plain.float().abs().max().item()
 
+        def prefill_ms(which):
+            with _ssd_op_on(which):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                prefill(params, toks, ssm_cfg, max_len=1024)
+                torch.cuda.synchronize()
+            return (time.monotonic() - t0) * 1e3
+
+        # the warm prefill of the first prompt on each route, in alternating
+        # order over 5 rounds (host clock: it spreads more than device time)
+        ms = {"tensor_cores": [], "cuda_cores": []}
+        for r in range(5):
+            for which in (("tensor_cores", "cuda_cores"), ("cuda_cores", "tensor_cores"))[r % 2]:
+                ms[which].append(prefill_ms(which))
         return {
+            "prefill_ms_by_route": {w: {"median": sorted(v)[2], "rounds": v}
+                                    for w, v in ms.items()},
             "logits_rel_err_plain_again": rel(plain_path()),
             "logits_rel_err_plain_noise": {
                 f"{n:.0e}": rel(noisy_plain(n)) for n in (1e-8, 3e-8, 1e-7, 3e-7, 1e-6, 3e-6)},
-            "logits_rel_err_tensor_cores": rel(_tensor_cores_in_ssd_op()),
+            "logits_rel_err_tensor_cores": rel(_ssd_op_on("tensor_cores")),
             "logits_rel_err_tensor_cores_y_diag_only": rel(tensor_cores_for(True, False)),
             "logits_rel_err_tensor_cores_states_only": rel(tensor_cores_for(False, True)),
         }
 
+    y_errs = []              # (max |y - plain|, max |plain|, differ share, far key weight)
+
+    def far_key_weight(a, chunk):
+        """The largest decay weight exp(cs_i - cs_j) of a key 64 or more
+        positions below its row within a chunk of ``a``: what K4's key
+        tiles two or more below a row tile can add to y at most, relative
+        to a key on the diagonal tile."""
+        w = 0.0
+        for c0 in range(0, a.shape[1], chunk):
+            cs = torch.cumsum(a[:, c0:c0 + chunk].float(), 1)
+            if cs.shape[1] > 64:
+                w = max(w, torch.exp(cs[:, 64:] - cs[:, :-64]).max().item())
+        return w
+
     @contextlib.contextmanager
     def state_probe():
-        """Each layer's final state from K4 against the plain version's
-        on the same inputs: |kernel - plain| / |plain|, Frobenius."""
+        """Every ``ssd_op`` call of the model held to ``ssd_op_ref`` on the
+        same inputs: y's readings go to ``y_errs``; the final state's
+        |kernel - plain| / |plain| (Frobenius) is what this yields."""
         errs, kernel = [], ssm.ssd_op
 
         def probe(xbar, a, B, C, chunk, initial_state=None):
             y, s = kernel(xbar, a, B, C, chunk, initial_state)
-            r = ssd_op_ref(xbar, a, B, C, chunk, initial_state)[1].float()
-            errs.append((s.float() - r).norm().item() / r.norm().item())
+            ry, rs = ssd_op_ref(xbar, a, B, C, chunk, initial_state)
+            y_errs.append((max_err(y, ry), ry.float().abs().max().item(),
+                           (y != ry).float().mean().item(), far_key_weight(a, chunk)))
+            errs.append((s.float() - rs.float()).norm().item() / rs.float().norm().item())
             return y, s
 
         with mock.patch.object(ssm, "ssd_op", probe):
@@ -1410,19 +1489,34 @@ def phase_serve_ssm(dev):
     # leaves 543 tokens; at 32-token pages its last whole page ends at 512,
     # where the repeat's prompt ends (at 16-token pages it would end at
     # 528, past the prompt, and the repeat would miss).
-    from repro_torch.configs import get_config
-
     ssm_cfg = get_config("mamba2-370m")
     cfg, reqs, counts, fields = _serve(
         dev, "mamba2-370m", plain_path, ("relay_assemble", "ssd_chunk"),
         decode_from_plain_prefill=True, page_size=32, state_leaf="ssm",
-        state_probe=state_probe, compare=compare)
+        state_probe=state_probe, compare=compare, gate_logits=False,
+        gate_path=lambda: _ssd_op_on("cuda_cores"))
+    fields["k4_same_input"] = {
+        "calls": len(y_errs), "max_abs_err": max(e[0] for e in y_errs),
+        "max_abs_err_of_max_y": max(e[0] / e[1] for e in y_errs),
+        "differ_share": max(e[2] for e in y_errs), "state_rel_err": fields["state_rel_err"],
+        "far_key_weight": max(e[3] for e in y_errs)}
+    print(f"  K4 on the same inputs as ssd_op_ref: {json.dumps(fields['k4_same_input'])}",
+          flush=True)
+    check(len(y_errs) == cfg.n_layers
+          and all(e[0] <= TOL[torch.bfloat16] * e[1] for e in y_errs),
+          f"ssd_op's y differs from ssd_op_ref on the same inputs by more than "
+          f"{TOL[torch.bfloat16]} of max |y|: {fields['k4_same_input']}")
+    served = route(ssm_cfg.dtype, ssm_cfg.ssm_chunk, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state)
+    check(served == "tensor_cores", f"Mamba2-370m's K4 route is {served}")
     check(counts["ssd_chunk"] == cfg.n_layers * len(reqs),
           f"K4 launched {counts['ssd_chunk']} times, not {cfg.n_layers} per request")
-    served = route(ssm_cfg.dtype, ssm_cfg.ssm_chunk, ssm_cfg.ssm_head_dim, ssm_cfg.ssm_state)
     check(counts[f"ssd_chunk:{served}"] == counts["ssd_chunk"],
           f"K4 took another route than its default, {served}, on the served path: "
           f"{ {k: v for k, v in counts.items() if k.startswith('ssd_chunk:')} }")
+    check(fields["gate_path_launches"] == {"ssd_chunk": cfg.n_layers,
+                                           "ssd_chunk:cuda_cores": cfg.n_layers},
+          f"the CUDA-core gate launched {fields['gate_path_launches']}: want K4 "
+          f"{cfg.n_layers} times, all on the CUDA cores")
     check(counts["flash_attention"] == counts["decode_attention"] == 0,
           "an attention kernel ran on the attention-free model")
     report("serve-ssm", **fields)
@@ -1805,7 +1899,7 @@ def _dist_mamba2(dev, mesh):
     seed 0, as DTensors under the mesh: a 512-token prefill (cold, then
     again warm) and 8 greedy decode steps, the mixer head-parallel in
     JAX's layout (K4 48 times a prefill, every launch on its default
-    route). Then, not counted, the same calls without a mesh on the same
+    route, the tensor cores). Then, not counted, the same calls without a mesh on the same
     weights and tokens: the logits of every call and every cache leaf
     (after the prefill and after the 8 steps) must equal the mesh run's bit
     for bit, every ``psum`` being over a group of one. Reported: the warm

@@ -12,9 +12,12 @@ back. An edit whose text is not in the source fails the run, so a variant
 cannot silently time the unedited kernel. The PyTorch library call for the
 same function (SDPA, for K3 and K2; K4 has none) is timed beside each
 case. The sets below hold the design choices behind the present K3, K2 and
-K4's tensor-core route: each variant undoes or changes one of them. A
+K4's tensor-core route: each variant undoes or changes one of them, by
+text edits or, where the change is a whole design, as another source
+(K4's former design, ``csrc/variants/``). A
 variant listed as report-only prints its errors without failing the run:
-those are the ones whose point is the error they cause. Each variant's edited source and nvcc log stay under
+those are the ones whose point is the error they cause, or that leave
+part of the work out to time the rest. Each variant's edited source and nvcc log stay under
 ``--out`` (default ``build/kernel_variants``, git-ignored).
 
 Needs a CUDA card, nvcc (PATH or /usr/local/cuda/bin) and the repository's
@@ -41,11 +44,16 @@ from chip_smoke import time_ms  # noqa: E402
 
 _K3_W2 = "launch_bf16<64, 2>("
 _K2_KG = "  int KG = kWarps / wpg < kMaxKeyGroups ? kWarps / wpg : kMaxKeyGroups;"
-_K4_SLICE = "constexpr int kSlice = 2;"
+_K4_WAIT = "    wgmma_wait<1>();                               // S of tile kt;"
+_K4_SHARED = CSRC / "variants" / "ssd_chunk_shared_s.cu"
+_K4_STATE = ("  if (kind == A.n_it)\n    state_item<PB, NB>(A, s, m, xo, bo);",
+             "  if (kind == A.n_it)\n    return;")
+_K4_Y = ("    y_item<PB, NB>(A, s, kind, m, xo, bo, co);", "    return;")
 _K4_SL = "constexpr int kPartsSL = 3;"
 _K4_XW = "constexpr int kPartsXW = 2;"
 
-# name -> (source file, {variant: [(old, new), ...]}, cases, report-only variants)
+# name -> (source file, {variant: [(old, new), ...] or another source}, cases,
+#          report-only variants)
 SETS = {
     "k3": ("flash_attention.cu", {
         "as built": [],
@@ -67,14 +75,18 @@ SETS = {
         "S o L as bf16 alone": [(_K4_SL, "constexpr int kPartsSL = 1;")],
         "x o w in three bf16 parts": [(_K4_XW, "constexpr int kPartsXW = 3;")],
         "x o w as bf16 alone": [(_K4_XW, "constexpr int kPartsXW = 1;")],
-        "C B^T per head": [(_K4_SLICE, "constexpr int kSlice = 1;")],
-        "four heads per C B^T": [(_K4_SLICE, "constexpr int kSlice = 4;")],
+        "C B^T shared by 2 heads through shared memory": _K4_SHARED,
+        "wait_all per tile": [(_K4_WAIT, _K4_WAIT.replace("<1>", "<0>"))],
         "cp.async instead of TMA": [("  A.tma = A.vec && P % 64 == 0 && N % 64 == 0;",
                                      "  A.tma = 0;")],
         "no load balancing": [("  std::stable_sort(A.order, A.order + A.n_it + 1,",
                                "  if (0) std::stable_sort(A.order, A.order + A.n_it + 1,")],
+        "y items alone": [_K4_STATE],
+        "state items alone": [_K4_Y],
+        "no item work (fixed costs)": [_K4_STATE, _K4_Y],
     }, [(512, 1, "fast"), (512, 1, "slow"), (384, 2, "slow")],
-        {"S o L in two bf16 parts", "S o L as bf16 alone", "x o w as bf16 alone"}),
+        {"S o L in two bf16 parts", "S o L as bf16 alone", "x o w as bf16 alone",
+         "y items alone", "state items alone", "no item work (fixed costs)"}),
 }
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -88,7 +100,10 @@ def _nvcc() -> str:
 
 
 def build(out: Path, name: str, source: str, edits) -> ctypes.CDLL:
-    text = (CSRC / source).read_text()
+    if isinstance(edits, Path):                  # a whole other source in its place
+        text, edits = edits.read_text(), []
+    else:
+        text = (CSRC / source).read_text()
     for old, new in edits:
         if old not in text:
             raise SystemExit(f"variant {name!r}: edit text not found: {old!r}")

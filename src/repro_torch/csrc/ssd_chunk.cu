@@ -19,25 +19,29 @@
 // the other.
 //
 // Tensor cores (bf16; Q % 64 == 0, 16 <= N <= 256 and P <= 128, both
-// multiples of 16). The work is cut into items, one block each, and every
-// item owns a (batch, chunk, group) and a slice of kSlice heads of that
-// group; a block has one warpgroup per head of its slice.
-//  - a y item also owns a 64-row tile i. For each key tile j <= i one
-//    warpgroup (j % kSlice, in turn) computes S = C_i B_j^T (wgmma
-//    m64n64k16, C and B bf16 K-major in shared memory, fp32 accumulators)
-//    and leaves it in shared memory; then every warpgroup builds S o L_h of
-//    its head in registers (exp only where i >= j, selected, never
-//    multiplied by a mask; ex2.approx of the log2e-scaled difference of
-//    the cumsums) and adds (S o L_h) x_h[j] into its y accumulator (wgmma
-//    with the register A operand, x_h MN-major in shared memory). C B^T is
-//    thus computed once per (chunk, group, row tile) for every kSlice
-//    heads, not once per head, and the heads' products run side by side.
-//  - a state item computes each head's states_h = (x_h o w_h)^T B (m = P,
-//    n = N, k = Q) with w_h = exp(cs_last - cs), and out_decay: x_h comes
-//    out of shared memory transposed by ldmatrix.trans into the register A
-//    operand and is scaled by w_h there; B, the same for the group's heads,
-//    is loaded once per block and stays bf16 in shared memory as the
-//    MN-major B operand. Only the head's own operand is built per head.
+// multiples of 16). The work is cut into items, one block of one warpgroup
+// each, and every item owns a (batch, chunk, head):
+//  - a y item also owns a 64-row tile i. For each key tile j <= i the
+//    warpgroup computes S = C_i B_j^T (wgmma m64n64k16, C and B bf16
+//    K-major in shared memory, fp32 accumulators), builds S o L_h from the
+//    accumulator fragment straight into the register A operand (exp only
+//    where i >= j, selected, never multiplied by a mask; ex2.approx of the
+//    log2e-scaled difference of the cumsums) and adds (S o L_h) x_h[j] into
+//    its y accumulator (wgmma with the register A operand, x_h MN-major in
+//    shared memory), as K3 builds P from S. S never leaves the registers:
+//    the heads of a group each compute their own, which costs N / 16
+//    products a key tile and saves a hand-over through shared memory and a
+//    block-wide barrier. Step j issues S of tile j, then y's product of
+//    tile j - 1, waits for the older group only (wgmma.wait_group 1) and
+//    builds S o L of tile j while that product runs; two register A
+//    operands alternate. No product stays in flight from one step into the
+//    next: one in flight across the loop's branches makes ptxas serialize
+//    every wgmma of the kernel (its warning C7515).
+//  - a state item computes states_h = (x_h o w_h)^T B (m = P, n = N, k = Q)
+//    with w_h = exp(cs_last - cs), and out_decay: x_h comes out of shared
+//    memory transposed by ldmatrix.trans into the register A operand and is
+//    scaled by w_h there; B stays bf16 in shared memory as the MN-major B
+//    operand.
 // Both register-built operands go to the tensor cores as a sum of bf16
 // parts, each the bf16 rounding of what the parts before it leave, one
 // product per part: three for S o L (with two, many more of y's bf16
@@ -45,21 +49,21 @@
 // them) and two for x o w (one misses the fp32 states' 1e-4, as bf16 P
 // missed K3's logits check). B, C
 // and x are bf16 already, so their products are exact in the fp32
-// accumulators. B, C and x tiles come by TMA (one thread
-// issues, an mbarrier per slot counts the bytes) into a two-slot ring, so
-// the next key tile's copy runs under the current tile's products; where
-// N or P is not a multiple of 64, or a stride or base does not suit TMA,
-// 16-byte cp.async copies (or, for strides that are not whole 16 bytes,
-// element gathers) write the same swizzled layout, zero-padded to
-// 64-column blocks. Operands stay bf16 in shared memory.
+// accumulators. B, C and x tiles come by TMA (one thread issues, an
+// mbarrier per slot counts the bytes) into two-slot rings, one for B and
+// one for x, so the next key tile's copies run under the current tile's
+// products (a y item frees a B slot when its S is done and an x slot when
+// its y product is); where N or P is not a multiple of 64, or a stride or
+// base does not suit TMA, 16-byte cp.async copies (or, for strides that
+// are not whole 16 bytes, element gathers) write the same swizzled layout,
+// zero-padded to 64-column blocks. Operands stay bf16 in shared memory.
 // Balance: a y item of row tile i walks i + 1 key tiles, and a state item
 // all Q / 64 of them, so costs differ up to 4:1 at Q = 256. The host ranks
 // the item kinds by a wgmma count (order_items) and the grid runs the
 // heaviest kind first, so that the light items fill in behind the heavy
-// ones instead of a heavy kind finishing alone in a second wave. At the
-// served shape the 160 items are all resident at once (two per SM), and
-// the order puts the heaviest on SMs of their own. This needs no scheduler
-// state and no atomics, where a persistent grid would need both.
+// ones instead of a heavy kind finishing alone in a second wave. This
+// needs no scheduler state and no atomics, where a persistent grid would
+// need both.
 //
 // CUDA cores (fp32, and bf16 shapes the tensor-core route does not take,
 // such as chunk 32 or N = 8): fp32 on 256 threads, tiles staged in
@@ -349,7 +353,6 @@ int launch_cc(const SsdArgs& args, int batch, cudaStream_t stream) {
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
 // ---------------------------------------------------------------------------
-constexpr int kSlice = 2;          // heads of one group per item, sharing C B^T
 constexpr int kPartsSL = 3;        // bf16 parts of S o L (y product)
 constexpr int kPartsXW = 2;        // bf16 parts of x o w (state product)
 constexpr int kMaxRowTiles = 16;   // Q <= 1024
@@ -362,7 +365,7 @@ struct TcArgs {
   bf16* y;
   float* states;
   float* decay;
-  int batch, H, G, L, Q, P, N, nc, R, n_slices, n_it, tma, vec;
+  int batch, H, G, L, Q, P, N, nc, R, n_it, tma, vec;
   long long xsb, xst, xsh, asb, ast, ash, bsb, bst, bsg, csb, cst, csg, ysb, yst, ysh;
   int order[kMaxRowTiles + 1];     // item kinds, heaviest first: row tile, or n_it = state
 };
@@ -382,6 +385,18 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t (&parts)
   }
 }
 
+// Keep a register A operand's registers live up to the wait that ends the
+// wgmma reading them, so the compiler does not reuse them while it runs.
+template <int NP>
+__device__ __forceinline__ void fence_operand(uint32_t (&parts)[NP][4][4]) {
+#pragma unroll
+  for (int k = 0; k < NP; ++k)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(parts[k][t][r])::"memory");
+}
+
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
@@ -389,9 +404,9 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t add
 
 // Block `idx`'s item: its kind (a row tile, or n_it for a state item) and
 // its index within the kind, walking the kinds in the host's order. Every
-// kind has one item per (batch, chunk, group, slice of heads).
+// kind has one item per (batch, chunk, head).
 __device__ __forceinline__ void item_of(const TcArgs& A, int idx, int& kind, int& rest) {
-  const int cnt = A.batch * A.nc * A.G * A.n_slices;
+  const int cnt = A.batch * A.nc * A.H;
   kind = A.n_it;
   rest = 0;
   for (int k = 0; k <= A.n_it; ++k) {
@@ -404,206 +419,241 @@ __device__ __forceinline__ void item_of(const TcArgs& A, int idx, int& kind, int
   }
 }
 
-// Shared-memory layout of a block (from a 1024-byte aligned base): C tile
-// (NB column blocks), S as fp32 in the accumulator's layout (thread-major,
-// so each thread reads its own 32 floats without bank conflicts), a
-// two-slot ring of (B tile, kSlice x tiles), cs and w for each head, and
-// three mbarriers (C, slot 0, slot 1).
-template <int PB, int NB>
-struct Layout {
-  static constexpr int kTileB = NB * kBlockBytes;   // 64 rows of B or C
-  static constexpr int kTileX = PB * kBlockBytes;   // 64 rows of x
-  static constexpr int kSBytes = 32 * kWgThreads * 4;
-  static constexpr int kSlot = kTileB + kSlice * kTileX;
-  static constexpr int kThreads = kSlice * kWgThreads;
-  static size_t bytes(int Q) {
-    return 1024 + (size_t)kTileB + kSBytes + 2 * (size_t)kSlot +
-           sizeof(float) * 2 * kSlice * (size_t)Q + 8 * 3;
-  }
+// Where a block's item lies: (batch, chunk, head), and the head's group.
+// Neighbouring blocks take neighbouring heads, which read the same B and C.
+struct Head {
+  int b, c, h, g, t0, valid;
 };
 
-// Where a block's item lies: (batch, chunk, group, slice of kSlice heads).
-struct Slice {
-  int b, c, g, h0, nh, t0, valid;
-};
-
-__device__ __forceinline__ Slice slice_of(const TcArgs& A, int rest) {
-  Slice s;
-  const int sl = rest % A.n_slices;
-  rest /= A.n_slices;
-  s.g = rest % A.G;
-  rest /= A.G;
+__device__ __forceinline__ Head head_of(const TcArgs& A, int rest) {
+  Head s;
+  s.h = rest % A.H;
+  rest /= A.H;
   s.c = rest % A.nc;
   s.b = rest / A.nc;
-  s.h0 = s.g * A.R + sl * kSlice;
-  s.nh = min(kSlice, A.R - sl * kSlice);
+  s.g = s.h / A.R;
   s.t0 = s.c * A.Q;
   s.valid = min(A.Q, A.L - s.t0);                  // positions of this chunk that exist
   return s;
 }
 
-// Key tile kt (rows [kt * 64, kt * 64 + 64) of the chunk: B, and x of each
-// head of the slice) into ring slot `slot`: by TMA (one thread issues it,
-// `bar` counts its bytes) or by cp.async from every thread.
+// One bf16 operand (x, B or C): element strides (batch, position, head or
+// group), its row width and its tensor map.
+struct Operand {
+  const bf16* p;
+  long long sb, st, si;
+  int width;
+  const CUtensorMap* map;
+};
+
+// Shared memory of a block (from a 1024-byte aligned base): the C tile, a
+// two-slot ring of B tiles, a two-slot ring of x tiles, cs and w, and five
+// mbarriers: C, the B slots, the x slots (a state item brings a step's B
+// and x through its B slot's barrier).
 template <int PB, int NB>
-__device__ __forceinline__ void load_keys(const TcArgs& A, const Slice& s, int kt,
-                                          uint32_t slot, uint32_t bar, const CUtensorMap* xmap,
-                                          const CUtensorMap* bmap) {
-  using Lay = Layout<PB, NB>;
-  const int j0 = kt * kTile;
+struct Smem {
+  static constexpr int kTileB = NB * kBlockBytes;   // 64 rows of B or C
+  static constexpr int kTileX = PB * kBlockBytes;   // 64 rows of x
+  static size_t bytes(int Q) {
+    return 1024 + 3 * (size_t)kTileB + 2 * (size_t)kTileX + sizeof(float) * 2 * (size_t)Q +
+           8 * 5;
+  }
+  uint32_t c, b0, x0, bars;
+  float* cs;                                        // cumsum(a), Q floats; then w
+  __device__ __forceinline__ uint32_t b(int slot) const { return b0 + slot * kTileB; }
+  __device__ __forceinline__ uint32_t x(int slot) const { return x0 + slot * kTileX; }
+  __device__ __forceinline__ uint32_t bar(int i) const { return bars + 8 * i; }
+};
+
+// Rows [row, row + 64) of operand o at (b, idx) into BLOCKS swizzled
+// 64-column blocks at dst: by TMA (thread 0 issues a box per block, and
+// `expect` has told `bar` the bytes), or by cp.async from every thread,
+// zeros past `nvalid` rows and past the width.
+template <int BLOCKS>
+__device__ __forceinline__ void load_rows(const TcArgs& A, const Operand& o, int b, int idx,
+                                          int row, int nvalid, uint32_t dst, uint32_t bar) {
   if (A.tma) {
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(bar, Lay::kTileB + s.nh * Lay::kTileX);
+    if (threadIdx.x == 0)
 #pragma unroll
-      for (int cb = 0; cb < NB; ++cb)
-        tma_load(slot + cb * kBlockBytes, bmap, bar, cb * 64, s.t0 + j0, s.g, s.b);
-      for (int hh = 0; hh < s.nh; ++hh)
-#pragma unroll
-        for (int cb = 0; cb < PB; ++cb)
-          tma_load(slot + Lay::kTileB + hh * Lay::kTileX + cb * kBlockBytes, xmap, bar,
-                   cb * 64, s.t0 + j0, s.h0 + hh, s.b);
-    }
+      for (int cb = 0; cb < BLOCKS; ++cb)
+        tma_load(dst + cb * kBlockBytes, o.map, bar, cb * 64, row, idx, b);
   } else {
-    const bf16* Bc = A.B + s.b * A.bsb + s.g * A.bsg + (long long)(s.t0 + j0) * A.bst;
-    const bf16* xc = A.x + s.b * A.xsb + s.h0 * A.xsh + (long long)(s.t0 + j0) * A.xst;
-    load_tile<NB * 64, Lay::kThreads>(slot, Bc, A.bst, s.valid - j0, A.N, A.vec, threadIdx.x);
-    for (int hh = 0; hh < s.nh; ++hh)
-      load_tile<PB * 64, Lay::kThreads>(slot + Lay::kTileB + hh * Lay::kTileX, xc + hh * A.xsh,
-                                        A.xst, s.valid - j0, A.P, A.vec, threadIdx.x);
+    load_tile<BLOCKS * 64, kWgThreads>(dst, o.p + b * o.sb + idx * o.si + (long long)row * o.st,
+                                       o.st, nvalid, o.width, A.vec, threadIdx.x);
   }
 }
 
-// Wait until key tile kt's slot has landed for every thread.
-__device__ __forceinline__ void wait_keys(const TcArgs& A, int kt, uint32_t bars) {
+__device__ __forceinline__ void expect(const TcArgs& A, uint32_t bar, int bytes) {
+  if (A.tma && threadIdx.x == 0) mbar_expect_tx(bar, bytes);
+}
+
+// Wait until the `use`-th phase of `bar` has landed for every thread: by
+// TMA, its mbarrier; by cp.async, all but this thread's `Newer` latest
+// commit groups, then the warpgroup.
+template <int Newer>
+__device__ __forceinline__ void landed(const TcArgs& A, uint32_t bar, int use) {
   if (A.tma) {
-    mbar_wait(bars + 8 * (1 + kt % 2), (kt / 2) & 1);
+    mbar_wait(bar, use & 1);
   } else {
-    cp_async_wait<0>();
+    cp_async_wait<Newer>();
     fence_async_shared();
+    wg_barrier(1);
   }
-  __syncthreads();
 }
 
-// y rows [i0, i0 + 64) of the slice's heads (see the note at the top):
-// warpgroup wg owns head h0 + wg, and warpgroup kt % kSlice computes the
-// S tile of key tile kt for all of them.
+// y rows [i0, i0 + 64) of one head (see the note at the top). Step kt
+// issues S of key tile kt and then y's product of tile kt - 1, waits for
+// the older group (S) only, and builds S o L of tile kt while that product
+// runs; the two register A operands alternate. No product is in flight
+// from one step into the next. cp.async commits two groups a step, the B
+// tile two ahead and the x tile one ahead (empty where there is none), so
+// each wait knows how many newer groups may stay in flight.
 template <int PB, int NB>
-__device__ __forceinline__ void y_item(const TcArgs& A, int rest, int it, uint32_t ctile,
-                                       float* sbuf, uint32_t ring, float* cs, uint32_t bars,
-                                       const CUtensorMap* xmap, const CUtensorMap* bmap,
-                                       const CUtensorMap* cmap) {
-  using Lay = Layout<PB, NB>;
+__device__ __forceinline__ void y_item(const TcArgs& A, const Head& s, int it,
+                                       const Smem<PB, NB>& m, const Operand& xo,
+                                       const Operand& bo, const Operand& co) {
+  using M = Smem<PB, NB>;
   constexpr int kNY = PB * 32;                     // y accumulator floats per thread
-  const Slice s = slice_of(A, rest);
+  using Operand16 = uint32_t[kPartsSL][4][4];      // S o L as kPartsSL bf16 parts
   const int i0 = it * kTile;
   if (i0 >= s.valid) return;                        // uniform: rows past L are not written
   const int tid = threadIdx.x;
-  const int wg = tid / kWgThreads;
-  const int wt = tid % kWgThreads;
-  const int warp = wt >> 5;
+  const int warp = tid >> 5;
   const int lane = tid & 31;
   const int row0 = warp * 16 + (lane >> 2);        // this thread's rows: row0, row0 + 8
   const int cq = (lane & 3) * 2;                   // and columns 8j + cq, 8j + cq + 1
-  const bool mine = wg < s.nh;                     // this warpgroup has a head
   const int n_kt = it + 1;
-  float* csh = cs + wg * A.Q;
 
-  if (A.tma) {
-    if (tid == 0) {
-      mbar_expect_tx(bars, Lay::kTileB);
-#pragma unroll
-      for (int cb = 0; cb < NB; ++cb)
-        tma_load(ctile + cb * kBlockBytes, cmap, bars, cb * 64, s.t0 + i0, s.g, s.b);
-    }
-  } else {
-    const bf16* Cc = A.C + s.b * A.csb + s.g * A.csg + (long long)(s.t0 + i0) * A.cst;
-    load_tile<NB * 64, Lay::kThreads>(ctile, Cc, A.cst, s.valid - i0, A.N, A.vec, tid);
-  }
-  load_keys<PB, NB>(A, s, 0, ring, bars + 8, xmap, bmap);
+  auto load_b = [&](int kt) {                      // B of key tile kt into slot kt % 2
+    expect(A, m.bar(1 + kt % 2), M::kTileB);
+    load_rows<NB>(A, bo, s.b, s.g, s.t0 + kt * kTile, s.valid - kt * kTile, m.b(kt % 2),
+                  m.bar(1 + kt % 2));
+  };
+  auto load_x = [&](int kt) {                      // x of key tile kt into slot kt % 2
+    expect(A, m.bar(3 + kt % 2), M::kTileX);
+    load_rows<PB>(A, xo, s.b, s.h, s.t0 + kt * kTile, s.valid - kt * kTile, m.x(kt % 2),
+                  m.bar(3 + kt % 2));
+  };
+  // once every thread is past S of tile kt and y's product of tile kt - 1:
+  // B slot kt % 2 and x slot (kt + 1) % 2 take the tiles that go there next
+  auto refill = [&](int kt) {
+    wg_barrier(1);
+    if (kt + 2 < n_kt) load_b(kt + 2);
+    if (!A.tma) cp_async_commit();
+    if (kt + 1 < n_kt) load_x(kt + 1);
+    if (!A.tma) cp_async_commit();
+  };
+
+  // commit groups (cp.async): [C, B 0], then [B 1], [x 0] as refill(-1)'s
+  expect(A, m.bar(0), M::kTileB);
+  load_rows<NB>(A, co, s.b, s.g, s.t0 + i0, s.valid - i0, m.c, m.bar(0));
+  load_b(0);
   if (!A.tma) cp_async_commit();
-  // each head's cs over the keys these rows see, while the first tiles are
-  // in flight
-  if (mine && warp == 0)
-    warp_cumsum(csh, A.a + s.b * A.asb + (s.h0 + wg) * A.ash + (long long)s.t0 * A.ast, A.ast,
+  if (n_kt > 1) load_b(1);
+  if (!A.tma) cp_async_commit();
+  load_x(0);
+  if (!A.tma) cp_async_commit();
+  // cs over the keys these rows see, while the first tiles are in flight
+  if (warp == 0)
+    warp_cumsum(m.cs, A.a + s.b * A.asb + s.h * A.ash + (long long)s.t0 * A.ast, A.ast,
                 i0 + kTile, s.valid, lane);
-  __syncthreads();
+  wg_barrier(1);
   float csi[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) csi[r] = mine ? csh[i0 + row0 + 8 * r] : 0.f;
-  if (A.tma) mbar_wait(bars, 0);                    // C landed
+  for (int r = 0; r < 2; ++r) csi[r] = m.cs[i0 + row0 + 8 * r];
 
   float acc[kNY];
 #pragma unroll
   for (int e = 0; e < kNY; ++e) acc[e] = 0.f;
+  float sc[32];
+  Operand16 pa0, pa1;                              // S o L of even and of odd key tiles
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    wait_keys(A, kt, bars);                        // tile kt landed; tile kt-1 consumed
-    if (kt + 1 < n_kt)                             // into the slot tile kt-1 used
-      load_keys<PB, NB>(A, s, kt + 1, ring + ((kt + 1) % 2) * Lay::kSlot,
-                        bars + 8 * (1 + (kt + 1) % 2), xmap, bmap);
-    if (!A.tma) cp_async_commit();
-    const uint32_t bt = ring + (kt % 2) * Lay::kSlot;
+  // S = C_i B_kt^T over N / 16 k-steps of 32 bytes inside each column block
+  auto issue_s = [&](int kt) {
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < NB * 4; ++t) {
+      const uint32_t off = (t / 4) * kBlockBytes + (t % 4) * 32;
+      wgmma_ss_n64(sc, sw128_desc(m.c + off, 16, 1024), sw128_desc(m.b(kt % 2) + off, 16, 1024),
+                   t > 0);
+    }
+    wgmma_commit();
+  };
+  // y += (S o L_h) x_h of key tile kt, x_h MN-major in its slot
+  auto issue_y = [&](int kt, Operand16& pa) {
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const uint64_t dx = sw128_desc(m.x(kt % 2) + t * 16 * 128, kBlockBytes, 1024);
+#pragma unroll
+      for (int k = 0; k < kPartsSL; ++k) wgmma_pv<PB * 64>(acc, pa[k][t], dx);
+    }
+    wgmma_commit();
+  };
+  // S o L_h of key tile kt, from sc, as wgmma's register A operand
+  // (k-step e / 8) in kPartsSL bf16 parts
+  auto build = [&](int kt, Operand16& pa) {
+    const bool diag = kt == it;                    // only this tile crosses i >= j
+    const int j0 = kt * kTile;
+    float csj[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) csj[q] = m.cs[j0 + (q / 2) * 8 + cq + q % 2];
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int r = (e % 4) / 2;
+      const int col = (e / 4) * 8 + cq;
+      const bool k0 = !diag || col <= row0 + 8 * r;
+      const bool k1 = !diag || col + 1 <= row0 + 8 * r;
+      // the difference first, then the log2e scale: a scaled cumsum of
+      // |cs| ~ 300 would carry ~3e-5 of rounding into every exponent
+      const float v0 = k0 ? sc[e] * ex2((csi[r] - csj[(e / 4) * 2]) * kLog2e) : 0.f;
+      const float v1 = k1 ? sc[e + 1] * ex2((csi[r] - csj[(e / 4) * 2 + 1]) * kLog2e) : 0.f;
+      split_bf16<kPartsSL>(v0, v1, pa, e / 8, (e % 8) / 2);
+    }
+  };
+  // key tile kt >= 1: prev holds S o L of tile kt - 1, cur takes tile kt's
+  auto step = [&](int kt, Operand16& prev, Operand16& cur) {
+    landed<3>(A, m.bar(1 + kt % 2), kt / 2);       // B of tile kt
+    issue_s(kt);
+    landed<2>(A, m.bar(3 + (kt - 1) % 2), (kt - 1) / 2);   // x of tile kt - 1
+    issue_y(kt - 1, prev);
+    wgmma_wait<1>();                               // S of tile kt; y's product runs on
+    fence_regs(sc);
+    build(kt, cur);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_operand(prev);
+    refill(kt);
+  };
 
-    // S = C_i B_j^T over N / 16 k-steps of 32 bytes inside each column
-    // block, by one warpgroup, into sbuf for all of them
-    if (wg == kt % kSlice) {
-      float sc[32];
-      wgmma_fence();
-#pragma unroll
-      for (int t = 0; t < NB * 4; ++t) {
-        const uint32_t off = (t / 4) * kBlockBytes + (t % 4) * 32;
-        wgmma_ss_n64(sc, sw128_desc(ctile + off, 16, 1024), sw128_desc(bt + off, 16, 1024),
-                     t > 0);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(sc);
-#pragma unroll
-      for (int e = 0; e < 32; ++e) sbuf[e * kWgThreads + wt] = sc[e];
-    }
-    __syncthreads();                               // S of tile kt is in sbuf
-    if (mine) {
-      const bool diag = kt == it;                  // only this tile crosses i >= j
-      const int j0 = kt * kTile;
-      float csj[16];
-#pragma unroll
-      for (int q = 0; q < 16; ++q) csj[q] = csh[j0 + (q / 2) * 8 + cq + q % 2];
-      // S o L_h as wgmma's register A operand (k-step e / 8), in kPartsSL
-      // bf16 parts
-      uint32_t pa[kPartsSL][4][4];
-#pragma unroll
-      for (int e = 0; e < 32; e += 2) {
-        const int r = (e % 4) / 2;
-        const int col = (e / 4) * 8 + cq;
-        const bool k0 = !diag || col <= row0 + 8 * r;
-        const bool k1 = !diag || col + 1 <= row0 + 8 * r;
-        // the difference first, then the log2e scale: a scaled cumsum of
-        // |cs| ~ 300 would carry ~3e-5 of rounding into every exponent
-        const float v0 =
-            k0 ? sbuf[e * kWgThreads + wt] * ex2((csi[r] - csj[(e / 4) * 2]) * kLog2e) : 0.f;
-        const float v1 =
-            k1 ? sbuf[(e + 1) * kWgThreads + wt] * ex2((csi[r] - csj[(e / 4) * 2 + 1]) * kLog2e)
-               : 0.f;
-        split_bf16<kPartsSL>(v0, v1, pa, e / 8, (e % 8) / 2);
-      }
-      const uint32_t xt = bt + Lay::kTileB + wg * Lay::kTileX;
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const uint64_t dx = sw128_desc(xt + t * 16 * 128, kBlockBytes, 1024);
-#pragma unroll
-        for (int k = 0; k < kPartsSL; ++k) wgmma_pv<PB * 64>(acc, pa[k][t], dx);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(acc);
-    }
+  landed<2>(A, m.bar(0), 0);                       // C
+  landed<2>(A, m.bar(1), 0);                       // B of key tile 0
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+  refill(0);
+  build(0, pa0);
+#pragma unroll 1
+  for (int kt = 1; kt < n_kt; kt += 2) {
+    step(kt, pa0, pa1);
+    if (kt + 1 < n_kt) step(kt + 1, pa1, pa0);
   }
+  const int last = n_kt - 1;                       // its S o L is in pa0 if even, else pa1
+  landed<2>(A, m.bar(3 + last % 2), last / 2);
+  if (last % 2 == 0) {
+    issue_y(last, pa0);
+    wgmma_wait<0>();
+    fence_operand(pa0);
+  } else {
+    issue_y(last, pa1);
+    wgmma_wait<0>();
+    fence_operand(pa1);
+  }
+  fence_regs(acc);
   cp_async_wait<0>();
-  if (!mine) return;
 
-  bf16* yb = A.y + s.b * A.ysb + (s.h0 + wg) * A.ysh + (long long)s.t0 * A.yst;
+  bf16* yb = A.y + s.b * A.ysb + s.h * A.ysh + (long long)s.t0 * A.yst;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int i = i0 + row0 + 8 * half;
@@ -618,42 +668,40 @@ __device__ __forceinline__ void y_item(const TcArgs& A, int rest, int it, uint32
   }
 }
 
-// The (P, N) states and out_decay of the slice's heads in one (batch,
-// chunk): warpgroup wg owns head h0 + wg; the B tiles are loaded once for
-// all of them.
+// The (P, N) states and out_decay of one head in one (batch, chunk): step
+// st takes the 64-row slice st / n_kt of P against key tile st % n_kt.
 template <int PB, int NB>
-__device__ __forceinline__ void state_item(const TcArgs& A, int rest, uint32_t ring, float* cs,
-                                           uint32_t bars, const CUtensorMap* xmap,
-                                           const CUtensorMap* bmap) {
-  using Lay = Layout<PB, NB>;
-  const Slice s = slice_of(A, rest);
+__device__ __forceinline__ void state_item(const TcArgs& A, const Head& s,
+                                           const Smem<PB, NB>& m, const Operand& xo,
+                                           const Operand& bo) {
+  using M = Smem<PB, NB>;
   const int n_kt = (s.valid + kTile - 1) / kTile;  // key tiles past L add nothing
   const int steps = PB * n_kt;                     // (64-row slice of P, key tile)
   const int tid = threadIdx.x;
-  const int wg = tid / kWgThreads;
-  const int wt = tid % kWgThreads;
-  const int warp = wt >> 5;
+  const int warp = tid >> 5;
   const int lane = tid & 31;
   const int row0 = warp * 16 + (lane >> 2);
   const int cq = (lane & 3) * 2;
-  const bool mine = wg < s.nh;
-  const int h = s.h0 + wg;
-  float* csh = cs + 2 * wg * A.Q;
-  float* w = csh + A.Q;
+  float* cs = m.cs;
+  float* w = cs + A.Q;
 
-  load_keys<PB, NB>(A, s, 0, ring, bars + 8, xmap, bmap);
-  if (!A.tma) cp_async_commit();
-  if (mine && warp == 0)
-    warp_cumsum(csh, A.a + s.b * A.asb + h * A.ash + (long long)s.t0 * A.ast, A.ast, A.Q,
+  auto load = [&](int st) {                        // step st's B and x into slot st % 2
+    const int j0 = (st % n_kt) * kTile;
+    expect(A, m.bar(1 + st % 2), M::kTileB + M::kTileX);
+    load_rows<NB>(A, bo, s.b, s.g, s.t0 + j0, s.valid - j0, m.b(st % 2), m.bar(1 + st % 2));
+    load_rows<PB>(A, xo, s.b, s.h, s.t0 + j0, s.valid - j0, m.x(st % 2), m.bar(1 + st % 2));
+    if (!A.tma) cp_async_commit();
+  };
+  load(0);
+  if (warp == 0)
+    warp_cumsum(cs, A.a + s.b * A.asb + s.h * A.ash + (long long)s.t0 * A.ast, A.ast, A.Q,
                 s.valid, lane);
-  __syncthreads();
-  const long long chunk = ((long long)s.b * A.H + h) * A.nc + s.c;
-  if (mine) {
-    const float cs_last = csh[A.Q - 1];
-    for (int i = wt; i < A.Q; i += kWgThreads) {
-      A.decay[chunk * A.Q + i] = expf(csh[i]);
-      w[i] = expf(cs_last - csh[i]);
-    }
+  wg_barrier(1);
+  const long long chunk = ((long long)s.b * A.H + s.h) * A.nc + s.c;
+  const float cs_last = cs[A.Q - 1];
+  for (int i = tid; i < A.Q; i += kWgThreads) {
+    A.decay[chunk * A.Q + i] = expf(cs[i]);
+    w[i] = expf(cs_last - cs[i]);
   }
 
   float acc[NB][32];
@@ -665,14 +713,11 @@ __device__ __forceinline__ void state_item(const TcArgs& A, int rest, uint32_t r
   for (int st = 0; st < steps; ++st) {
     const int mt = st / n_kt;
     const int kt = st - mt * n_kt;
-    wait_keys(A, st, bars);                        // (and, the first time, w is ready)
-    if (st + 1 < steps)
-      load_keys<PB, NB>(A, s, (st + 1) % n_kt, ring + ((st + 1) % 2) * Lay::kSlot,
-                        bars + 8 * (1 + (st + 1) % 2), xmap, bmap);
-    if (!A.tma) cp_async_commit();
-    if (!mine) continue;
-    const uint32_t bt = ring + (st % 2) * Lay::kSlot;
-    const uint32_t xt = bt + Lay::kTileB + wg * Lay::kTileX + mt * kBlockBytes;
+    landed<0>(A, m.bar(1 + st % 2), st / 2);
+    wg_barrier(1);                                 // (and, the first time, w is ready)
+    if (st + 1 < steps) load(st + 1);              // into the slot step st - 1 used
+    const uint32_t bt = m.b(st % 2);
+    const uint32_t xt = m.x(st % 2) + mt * kBlockBytes;
 
     // (x_h o w_h)^T as the register A operand: ldmatrix.trans hands lane l
     // the pairs (x[j][p], x[j + 1][p]) of rows p = row0 (+8), keys
@@ -704,9 +749,10 @@ __device__ __forceinline__ void state_item(const TcArgs& A, int rest, uint32_t r
       }
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb) fence_regs(acc[cb]);
+    fence_operand(pa);
 
     if (kt == n_kt - 1) {                          // rows [64 mt, 64 mt + 64) are complete
       float* out = A.states + chunk * A.P * A.N;
@@ -730,43 +776,48 @@ __device__ __forceinline__ void state_item(const TcArgs& A, int rest, uint32_t r
 }
 
 template <int PB, int NB>
-__global__ void __launch_bounds__(kSlice * kWgThreads)
+__global__ void __launch_bounds__(kWgThreads)
 ssd_chunk_tc_kernel(const __grid_constant__ TcArgs A, const __grid_constant__ CUtensorMap xmap,
                     const __grid_constant__ CUtensorMap bmap,
                     const __grid_constant__ CUtensorMap cmap) {
-  using Lay = Layout<PB, NB>;
+  using M = Smem<PB, NB>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;   // swizzle atoms are 1024-B aligned
-  const uint32_t ctile = base;
-  float* sbuf = reinterpret_cast<float*>(smem_raw + (base + Lay::kTileB - raw));
-  const uint32_t ring = base + Lay::kTileB + Lay::kSBytes;
-  float* cs = reinterpret_cast<float*>(smem_raw + (ring + 2 * Lay::kSlot - raw));
-  const uint32_t bars = ring + 2 * Lay::kSlot + sizeof(float) * 2 * kSlice * A.Q;
+  M m;
+  m.c = base;
+  m.b0 = base + M::kTileB;
+  m.x0 = base + 3 * M::kTileB;
+  const uint32_t cs = m.x0 + 2 * M::kTileX;
+  m.cs = reinterpret_cast<float*>(smem_raw + (cs - raw));
+  m.bars = cs + sizeof(float) * 2 * A.Q;
   if (A.tma) {
     if (threadIdx.x == 0) {
-      for (int i = 0; i < 3; ++i) mbar_init(bars + 8 * i, 1);
+      for (int i = 0; i < 5; ++i) mbar_init(m.bar(i), 1);
       asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
     __syncthreads();
   }
   int kind, rest;
   item_of(A, blockIdx.x, kind, rest);
+  const Head s = head_of(A, rest);
+  const Operand xo{A.x, A.xsb, A.xst, A.xsh, A.P, &xmap};
+  const Operand bo{A.B, A.bsb, A.bst, A.bsg, A.N, &bmap};
+  const Operand co{A.C, A.csb, A.cst, A.csg, A.N, &cmap};
   if (kind == A.n_it)
-    state_item<PB, NB>(A, rest, ring, cs, bars, &xmap, &bmap);
+    state_item<PB, NB>(A, s, m, xo, bo);
   else
-    y_item<PB, NB>(A, rest, kind, ctile, sbuf, ring, cs, bars, &xmap, &bmap, &cmap);
+    y_item<PB, NB>(A, s, kind, m, xo, bo, co);
 }
 
-// The host's balance model, in m64n64k16 wgmma steps on a block's longest
-// warpgroup: a y item of row tile i walks i + 1 key tiles, each an S of
-// N / 16 steps plus its head's 8 P / 64 products (4 k-steps, two parts)
-// and exponents (counted as 4); a state item walks every key tile with
-// 8 N / 64 products per 64-row slice of P.
+// The host's balance model, in m64n64k16 wgmma steps: a y item of row tile
+// i walks i + 1 key tiles, each an S of N / 16 steps plus 4 kPartsSL P / 64
+// products and the exponents (counted as 4); a state item walks every key
+// tile with 4 kPartsXW N / 64 products per 64-row slice of P.
 void order_items(TcArgs& A, int PB, int NB) {
   int cost[kMaxRowTiles + 1];
-  for (int it = 0; it < A.n_it; ++it) cost[it] = (it + 1) * (4 * NB + 8 * PB + 4);
-  cost[A.n_it] = 8 * NB * PB * A.n_it;
+  for (int it = 0; it < A.n_it; ++it) cost[it] = (it + 1) * (4 * NB + 4 * kPartsSL * PB + 4);
+  cost[A.n_it] = 4 * kPartsXW * NB * PB * A.n_it;
   for (int k = 0; k <= A.n_it; ++k) A.order[k] = k;
   std::stable_sort(A.order, A.order + A.n_it + 1,
                    [&](int u, int v) { return cost[u] > cost[v]; });
@@ -774,14 +825,13 @@ void order_items(TcArgs& A, int PB, int NB) {
 
 template <int PB, int NB>
 int launch_tc_t(TcArgs& A, const CUtensorMap* maps, cudaStream_t stream) {
-  using Lay = Layout<PB, NB>;
-  const size_t smem = Lay::bytes(A.Q);
+  const size_t smem = Smem<PB, NB>::bytes(A.Q);
   auto kernel = ssd_chunk_tc_kernel<PB, NB>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return (int)err;
   order_items(A, PB, NB);
-  const int items = A.batch * A.nc * A.G * A.n_slices * (A.n_it + 1);
-  kernel<<<items, Lay::kThreads, smem, stream>>>(A, maps[0], maps[1], maps[2]);
+  const int items = A.batch * A.nc * A.H * (A.n_it + 1);
+  kernel<<<items, kWgThreads, smem, stream>>>(A, maps[0], maps[1], maps[2]);
   return (int)cudaGetLastError();
 }
 
@@ -804,7 +854,6 @@ int launch_tc(const SsdArgs& s, int batch, cudaStream_t stream) {
   A.decay = s.decay;
   A.batch = batch, A.H = s.H, A.G = s.G, A.L = s.L, A.Q = Q, A.P = P, A.N = N, A.nc = s.nc;
   A.R = s.H / s.G;
-  A.n_slices = (A.R + kSlice - 1) / kSlice;
   A.n_it = Q / kTile;
   A.xsb = s.xsb, A.xst = s.xst, A.xsh = s.xsh, A.asb = s.asb, A.ast = s.ast, A.ash = s.ash;
   A.bsb = s.bsb, A.bst = s.bst, A.bsg = s.bsg, A.csb = s.csb, A.cst = s.cst, A.csg = s.csg;

@@ -6,11 +6,12 @@ element strides and reads head h's B/C group h // (H / G) itself, so the
 (BH, nc, Q, ·) layout here and the model's (b, l, h, p) layout (``ops.py``)
 launch it without a transposing or broadcasting copy.
 
-Two kernels, one chosen by ``route``: the CUDA-core kernel, which every
-call takes unless it names the other, and the tensor-core kernel
-(``wgmma`` products, TMA loads) for the bf16 shapes ``tensor_cores_take``
-accepts. A route that cannot take a shape raises; it never hands the call
-to the other route or to the plain version."""
+Two kernels, one chosen by ``route``: the tensor-core kernel (``wgmma``
+products, TMA loads; each head computes its own C B^T in registers) for
+the bf16 shapes ``tensor_cores_take`` accepts, and the CUDA-core kernel
+for fp32 and every other shape. A call may name either; a route that
+cannot take a shape raises. Neither hands a call to the other or to the
+plain version."""
 from __future__ import annotations
 
 import math
@@ -42,13 +43,16 @@ def tensor_cores_take(dtype: torch.dtype, Q: int, P: int, N: int) -> bool:
 
 def route(dtype: torch.dtype, Q: int, P: int, N: int, which: Optional[str] = None) -> str:
     """The K4 kernel a call runs on: ``which`` where the caller names one,
-    else the CUDA cores. The CUDA-core kernel repeats the plain version's
-    fp32 arithmetic, so its y_diag rounds to the same bf16 values. The
-    tensor-core kernel is within one bf16 ulp of it, but the served
-    random-weight Mamba2-370m carries single ulps through its 48 layers past
-    the 2e-2 that chip_smoke.py holds its prefill logits to against the plain
-    path, so no caller takes it by default yet."""
-    which = which or "cuda_cores"
+    else the tensor cores wherever ``tensor_cores_take`` holds (Mamba2's and
+    jamba's bf16 shapes) and the CUDA cores elsewhere. The tensor-core
+    kernel's y_diag lies within one bf16 ulp of the plain version's but
+    does not round alike everywhere; the served random-weight Mamba2-370m
+    carries such single ulps through its 48 layers past a 2e-2 logits
+    check, so ``chip_smoke.py`` holds every served call to the plain
+    version on the same inputs instead, and keeps the logits check on the
+    CUDA-core kernel, which repeats the plain version's fp32 arithmetic."""
+    if which is None:
+        which = "tensor_cores" if tensor_cores_take(dtype, Q, P, N) else "cuda_cores"
     if which not in ROUTES:
         raise ValueError(f"ssd_chunk: unknown route {which!r}")
     if which == "tensor_cores" and not tensor_cores_take(dtype, Q, P, N):

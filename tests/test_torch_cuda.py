@@ -236,7 +236,7 @@ def _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, decay, which=None)
         _close(out, ref, want_dtype)
 
 
-@pytest.mark.parametrize("which", [None, "tensor_cores"])
+@pytest.mark.parametrize("which", ["cuda_cores", None])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l,h,p,n,groups,chunk", [
     (512, 32, 64, 128, 1, 256),    # Mamba2-370m's prefill of 512 tokens
@@ -247,7 +247,7 @@ def test_ssd_chunk_matches_plain(dev, dtype, l, h, p, n, groups, chunk, which):
     _ssd_matches_plain(dev, dtype, l, h, p, n, groups, chunk, "fast", which)
 
 
-@pytest.mark.parametrize("which", [None, "tensor_cores"])
+@pytest.mark.parametrize("which", ["cuda_cores", None])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l,h,p,n,groups,chunk", [
     (512, 32, 64, 128, 1, 256),    # Mamba2-370m's prefill of 512 tokens
@@ -279,22 +279,23 @@ def test_ssd_chunk_tensor_cores_match_plain(dev, l, h, p, n, groups, chunk, deca
     _ssd_matches_plain(dev, torch.bfloat16, l, h, p, n, groups, chunk, decay, "tensor_cores")
 
 
-@pytest.mark.parametrize("which", [None, "tensor_cores"])
+@pytest.mark.parametrize("which", ["cuda_cores", None])
 @pytest.mark.parametrize("h", [16, 8, 2])
 def test_ssd_chunk_on_a_ranks_local_heads_matches_plain(dev, h, which):
     """Mamba2-370m's prefill with its 32 heads split over a model axis of
     2, 4 or 16: the head counts K4 takes under a mesh, Mamba2's slow
-    decays, on the default route and on the tensor cores."""
+    decays, forced onto the CUDA cores and on the default route (the
+    tensor cores)."""
     _ssd_matches_plain(dev, torch.bfloat16, 512, h, 64, 128, 1, 256, "slow", which)
 
 
 def test_ssd_chunk_cuda_cores_forced_at_the_served_shape(dev):
-    """The served bf16 shape takes the CUDA-core kernel by default and when
-    named, and the tensor-core kernel only when named; each agrees with the
-    plain version."""
+    """The served bf16 shape takes the tensor-core kernel by default and
+    when named, and the CUDA-core kernel only when named; each agrees with
+    the plain version."""
     x, a, B, C = _ssd_inputs(dev, torch.bfloat16, 1, 512, 32, 64, 128, 1, "slow")
     want = ssd_chunk_op_ref(x, a, B, C, 256)
-    for which, took in ((None, "cuda_cores"), ("cuda_cores", "cuda_cores"),
+    for which, took in ((None, "tensor_cores"), ("cuda_cores", "cuda_cores"),
                         ("tensor_cores", "tensor_cores")):
         before = dict(ssd_chunk.route_launches)
         got = ssd_chunk_op(x, a, B, C, 256, which=which)
@@ -304,12 +305,30 @@ def test_ssd_chunk_cuda_cores_forced_at_the_served_shape(dev):
             _close(out, ref, dtype)
 
 
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+@pytest.mark.parametrize("l,h,p,n,groups,chunk", [
+    (512, 32, 64, 128, 1, 256),    # Mamba2-370m's prefill of 512 tokens (served)
+    (512, 16, 64, 128, 1, 256),    # its heads on 2 model ranks
+    (512, 8, 64, 128, 1, 256),     # on 4
+    (512, 2, 64, 128, 1, 256),     # on 16
+    (384, 32, 64, 128, 2, 256),    # two groups, ragged last chunk
+    (512, 32, 64, 16, 1, 256),     # jamba's N = 16 (cp.async)
+])
+def test_ssd_chunk_default_route_is_the_tensor_cores(dev, l, h, p, n, groups, chunk, decay):
+    """The shapes the served models give K4 take the tensor-core kernel
+    (each head its own C B^T, S in registers) without naming it, and
+    agree with the plain version."""
+    assert route(torch.bfloat16, chunk, p, n) == "tensor_cores"
+    _ssd_matches_plain(dev, torch.bfloat16, l, h, p, n, groups, chunk, decay)
+
+
 def test_ssd_chunk_tensor_core_kernel_has_hgmma(dev):
-    """The bf16 K4 functions' SASS carries wgmma (HGMMA) instructions."""
+    """The bf16 K4 functions' SASS carries wgmma (HGMMA) instructions and
+    no warp-level mma (HMMA)."""
     counts = build.sass_counts("ssd_chunk_tc", ("HGMMA", "HMMA"))
     if counts is None:
         pytest.skip("the toolkit has no cuobjdump")
-    assert counts and all(c["HGMMA"] > 0 for c in counts.values()), counts
+    assert counts and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in counts.values()), counts
 
 
 def test_ssd_chunk_fused_layout_matches_plain(dev):

@@ -351,11 +351,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
     (torch.bfloat16, 256, 64, 272, "cuda_cores"),     # N past 256
 ])
 def test_ssd_route_is_a_function_of_dtype_and_shape(dtype, Q, P, N, expected):
-    """Every shape takes the CUDA cores unless the call names a route; the
-    tensor cores take the bf16 shapes ``tensor_cores_take`` accepts and
-    refuse the rest."""
+    """The default route is the tensor cores for the bf16 shapes
+    ``tensor_cores_take`` accepts and the CUDA cores for the rest; a call
+    that names the CUDA cores takes them, and the tensor cores, named,
+    refuse what they do not take."""
     assert ssd_tensor_cores_take(dtype, Q, P, N) == (expected == "tensor_cores")
-    assert ssd_route(dtype, Q, P, N) == ssd_route(dtype, Q, P, N, "cuda_cores") == "cuda_cores"
+    assert ssd_route(dtype, Q, P, N) == expected
+    assert ssd_route(dtype, Q, P, N, "cuda_cores") == "cuda_cores"
     if expected == "tensor_cores":
         assert ssd_route(dtype, Q, P, N, "tensor_cores") == "tensor_cores"
     else:
@@ -375,7 +377,7 @@ def test_ssd_route_of_the_configured_models(model, reduced, expected):
     cfg = cfg.reduced() if reduced else cfg
     shape = (cfg.dtype, cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state)
     assert ssd_tensor_cores_take(*shape) == (expected == "tensor_cores")
-    assert ssd_route(*shape) == "cuda_cores"      # what the model's ssd_op launches
+    assert ssd_route(*shape) == expected          # what the model's ssd_op launches
 
 
 @pytest.mark.parametrize("dtype,which", [(torch.float32, "tensor_cores"),

@@ -178,6 +178,35 @@ def test_ssd_chunked_matches_jax_at_slow_decays(g):
         *(jnp.asarray(t) for t in (xbar, a, B, C)), chunk, None)[1])).max() > 1e-2
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_op_matches_jax_at_mamba2_370m_width(dtype):
+    """``ssd_op`` (on the CPU: K4's plain route) against JAX's
+    ``ssd_chunked`` at Mamba2-370m's full width: 32 heads of 64, one B/C
+    group of N = 128, chunk 256, a 512-token prefill, Mamba2's slow decays
+    (every key tile and state position counts). fp32 to SSD_TOL. bf16 x, B
+    and C (the served dtype; a in fp32 on both sides) to 2e-2 of max |y|
+    and of max |state|, the port's bf16 tolerance: JAX rounds C B^T to bf16
+    before the decays, the port keeps it in fp32."""
+    from repro_torch.kernels import ssd_op
+
+    b, l, h, p, n, chunk = 1, 512, 32, 64, 128, 256
+    xbar, a, B, C = _ssd_inputs(b, l, h, p, n, seed=11, decay="slow")
+    jt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tt = getattr(torch, dtype)
+    jy, js = jssm.ssd_chunked(jnp.asarray(xbar, jt), jnp.asarray(a), jnp.asarray(B, jt),
+                              jnp.asarray(C, jt), chunk)
+    ty, ts = ssd_op(torch.from_numpy(xbar).to(tt), torch.from_numpy(a),
+                    torch.from_numpy(B).to(tt), torch.from_numpy(C).to(tt), chunk)
+    assert ty.shape == (b, l, h, p) and ts.shape == (b, h, p, n) and ts.dtype == tt
+    got = [t_.float().numpy() for t_ in (ty, ts)]
+    want = [np.asarray(j_, np.float32) for j_ in (jy, js)]
+    for g_, w_ in zip(got, want):
+        if dtype == "float32":
+            np.testing.assert_allclose(g_, w_, **SSD_TOL)
+        else:
+            assert np.abs(g_ - w_).max() <= 2e-2 * np.abs(w_).max()
+
+
 def test_ssd_chunked_keeps_state_in_input_dtype():
     xbar, a, B, C = (torch.from_numpy(t) for t in _ssd_inputs(1, 20, 2, 4, 8))
     y, s = ssd_chunked(xbar.bfloat16(), a, B.bfloat16(), C.bfloat16(), 8)

@@ -37,7 +37,14 @@ Phases, one result line each:
              its default route (the tensor cores for the bf16 shapes they
              take, which the model takes) and on the other route where it
              takes the case; at the served shape timed on both and inside
-             ssd_op (K4 + the inter-chunk scan + y_off) on both
+             ssd_op (K4 + the inter-chunk scan + y_off) on both; K4b, K4's
+             gradient, through SSDChunkFn after a forward on each K4 route,
+             at Mamba2-370m's train shape (8 x 512 tokens), at l = 384 with
+             two groups and a ragged l = 300, fast and slow decays, bf16 and
+             fp32, held to its plain version on the same inputs and
+             cotangents, the same bits on a second call, and timed beside
+             its bound, the plain version and autograd through the plain
+             forward
   transfer   multipath_device_put / _get of a 1 GiB pinned bf16 tensor, bit-exact,
              over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
   serve      the dense path: TinyLlama-1.1B at full width in bf16 (random weights
@@ -109,6 +116,17 @@ Phases, one result line each:
              backward. Step 1's gradient, computed apart, probes every K3
              forward and backward against the plain version on the same
              inputs, and its loss against the plain path's
+  train-ssm  Mamba2 trained: mamba2-370m at full width and depth in bf16
+             through repro_torch.training.train on 8 x 512 synthetic tokens,
+             remat on, AdamW: 4 steps, then 4 more from the returned state.
+             K4 runs forward and under remat in every layer (tensor cores),
+             its gradient is K4b. Step 1's gradient, computed apart, probes
+             every K4 forward and K4b backward against the plain versions on
+             the same inputs and cotangents, its loss against the plain
+             path's; every leaf's gradient finite and non-zero; reported
+             beside the leaves' errors, the plain path's noise control and
+             the card tests' reduced models; 96 K4 and 48 K4b launches a
+             step; the loss must fall; one step traced
   launch-serve  the serving entry point, repro_torch.launch.serve.run, with
              TinyLlama-1.1B at full width in bf16 and the JAX launcher's
              defaults (6 requests of 48 tokens, 6 new tokens each, request 3
@@ -120,7 +138,10 @@ Phases, one result line each:
              --no-reduced --steps 4: TinyLlama-1.1B at full width in fp32,
              batch 8 x 128, remat, on a one-rank NCCL mesh (K3's fp32
              kernel); every loss finite, step 0's loss within 1e-3 of
-             loss_fn through the plain path on the same weights and batch
+             loss_fn through the plain path on the same weights and batch;
+             then the same for mamba2-370m (K4's CUDA-core kernel and K4b
+             in fp32, through the mixer's shard_map), its step 0's K4 and
+             K4b calls held to their plain versions on the same inputs
   dryrun     python -m repro_torch.launch.dryrun for tinyllama-1.1b and
              gemma-7b x decode_32k on 16x16 and 2x16x16, and tinyllama-1.1b
              with --opt kv_seq_shard on 16x16, three processes at once with
@@ -131,10 +152,10 @@ Launch counts are zeroed just before each serve phase's main path and read
 just after it (musicgen's inputs_embeds run is a path of its own,
 serve-audio:inputs_embeds, and gemma's entry-point run
 serve-gemma:launch-serve; the train phase's steps and checkpoint are path
-train; phase dist's OLMoE run and its train step, each counted apart and
-summed, are path dist, its Mamba2 run path dist-mamba2; the two entry
-points' runs are paths launch-serve
-and launch-train). The script ends with the kernels JSON line
+train, the train-ssm phase's 8 steps path train-ssm; phase dist's OLMoE run
+and its train step, each counted apart and summed, are path dist, its
+Mamba2 run path dist-mamba2; the entry points' runs are paths launch-serve,
+launch-train and launch-train:mamba2-370m). The script ends with the kernels JSON line
 (launches summed over the paths, and per path), the card's name and power
 limit, and
 {"ok": true, "device": {...}}. It needs a CUDA card and the repository's
@@ -694,7 +715,7 @@ def _decode_case(dev, gen):
     return row
 
 
-def _ssd_inputs(dev, gen, dtype, l, h, groups, decay, n=128):
+def _ssd_inputs(dev, gen, dtype, l, h, groups, decay, n=128, batch=1):
     """x, a, B, C for K4 in the model's layout. ``fast``: a = -softplus(randn),
     about -0.8 a step, so a key 32 positions back weighs about 1e-11 and only
     the tiles on the diagonal show in the result. ``slow``: Mamba2's own
@@ -702,22 +723,22 @@ def _ssd_inputs(dev, gen, dtype, l, h, groups, decay, n=128):
     [1e-3, 1e-1] (its init of A_log and dt_bias) by quantiles across the
     heads, dt jittered per position, and x times dt as the block forms it: many heads decay by only O(1-10) over a
     256-position chunk, so every key tile and every state position counts.
-    ``n`` is the state width (B and C's last dim)."""
-    x = torch.randn(1, l, h, 64, device=dev, generator=gen)
+    ``n`` is the state width (B and C's last dim), ``batch`` the sequences."""
+    x = torch.randn(batch, l, h, 64, device=dev, generator=gen)
     if decay == "fast":
         x, scale = x * 0.3, 0.3
-        a = -torch.nn.functional.softplus(torch.randn(1, l, h, device=dev, generator=gen))
+        a = -torch.nn.functional.softplus(torch.randn(batch, l, h, device=dev, generator=gen))
     else:
         # quantiles of both draws, each in its own random order over the heads
         q = (torch.arange(h, device=dev) + 0.5) / h
         A = 1 + 15 * q[torch.randperm(h, device=dev, generator=gen)]
         dt0 = 1e-3 * 100 ** q[torch.randperm(h, device=dev, generator=gen)]
-        dt = dt0 * (0.5 + torch.rand(1, l, h, device=dev, generator=gen))
+        dt = dt0 * (0.5 + torch.rand(batch, l, h, device=dev, generator=gen))
         x, scale = x * dt[..., None], 0.5
         a = -A * dt
     scale *= (128 / n) ** 0.25      # C . B keeps its spread at any state width n
-    B = (torch.randn(1, l, groups, n, device=dev, generator=gen) * scale).to(dtype)
-    C = (torch.randn(1, l, groups, n, device=dev, generator=gen) * scale).to(dtype)
+    B = (torch.randn(batch, l, groups, n, device=dev, generator=gen) * scale).to(dtype)
+    C = (torch.randn(batch, l, groups, n, device=dev, generator=gen) * scale).to(dtype)
     return x.to(dtype), a, B, C
 
 
@@ -849,6 +870,168 @@ def _ssd_case(dev, gen):
     return row
 
 
+def _ssd_bwd_reach(x, a, B, C, Q, dy, dstates):
+    """What a K4b that dropped distant work would get wrong: max |part of
+    dx| from row tiles two or more 32-position tiles below the key's tile,
+    and of dC from key tiles two or more above the row's (what the
+    kernel's column and row items walk), each relative to that gradient's
+    max; and max |state term of dx|, w_j dstates B_j, relative to max |dx|.
+    In the model's layout, B and C per group, cotangents dy and dstates."""
+    b, l, h, _ = x.shape
+    r = h // B.shape[2]
+    nc = -(-l // Q)
+
+    def chunks(t):                     # (b, l, ...) -> (b, nc, Q, ...), zero-padded
+        t = t.float()
+        t = torch.cat([t, t.new_zeros((b, nc * Q - l) + t.shape[2:])], 1)
+        return t.reshape((b, nc, Q) + t.shape[2:])
+
+    x, dy, cs = chunks(x), chunks(dy), torch.cumsum(chunks(a), 2)      # (b, nc, Q, h)
+    Bh, Ch = (chunks(t).repeat_interleave(r, 3) for t in (B, C))
+    i = torch.arange(Q, device=x.device)
+    tiles = i[:, None] // 32 - i[None, :] // 32
+    diff = cs[:, :, :, None] - cs[:, :, None, :]                       # (b, nc, i, j, h)
+    L = torch.where((tiles >= 0)[None, None, :, :, None], torch.exp(diff.clamp(max=0)), 0.0)
+    far = (tiles >= 2)[None, None, :, :, None]
+    S = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
+    dM = torch.einsum("bcihp,bcjhp->bcijh", dy, x)
+    dx = torch.einsum("bcijh,bcihp->bcjhp", S * L, dy)
+    dx_far = torch.einsum("bcijh,bcihp->bcjhp", S * L * far, dy)
+    dC = torch.einsum("bcijh,bcjhn->bcihn", dM * L, Bh)
+    dC_far = torch.einsum("bcijh,bcjhn->bcihn", dM * L * far, Bh)
+    w = torch.exp(cs[:, :, -1:] - cs)                                  # (b, nc, Q, h)
+    ds_B = torch.einsum("bhcpn,bcjhn->bcjhp", dstates.float(), Bh) * w[..., None]
+    dx_all = (dx + ds_B).abs().max().item()
+    return {"dx_far": dx_far.abs().max().item() / dx_all,
+            "dC_far": dC_far.abs().max().item() / dC.abs().max().item(),
+            "dx_states": ds_B.abs().max().item() / dx_all}
+
+
+def _ssd_bwd_case(dev, gen):
+    """K4b, K4's gradient, through ``SSDChunkFn`` as the model takes it: at
+    the train shape (8 x 512 tokens, Mamba2-370m's 32 heads of 64, one
+    group of N = 128, chunk 256), at l = 384 with two groups and at a
+    ragged l = 300; fast and slow decays (``_ssd_inputs``), bf16 and fp32,
+    each after a forward on each K4 route that takes the case. dx, da, dB
+    and dC are held to ``ssd_chunk_op_bwd_ref`` on the same inputs and
+    cotangents, each within the dtype's tolerance of that gradient's
+    largest magnitude; a slow case must be able to see a K4b that drops the
+    key tiles two or more below the row tile, or the state terms (each
+    5x the tolerance, ``_ssd_bwd_reach``). K4b twice on the same inputs
+    gives the same bits. Timed at the train shape (device ms through a CUDA
+    graph, eager ms) beside the plain version, autograd through the plain
+    forward, and its bound: the operations of its five causal Q x Q
+    products and state terms at the card's bf16 peak, or the bytes of its
+    inputs and outputs, whichever is longer (the fp32 call's beside it,
+    its operations at the fp32 CUDA-core peak)."""
+    from repro_torch.kernels import ssd_chunk, ssd_chunk_bwd, ssd_chunk_op, ssd_chunk_op_bwd, \
+        ssd_chunk_op_bwd_ref, ssd_chunk_op_ref
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import route, tensor_cores_take
+
+    Q, h = 256, 32
+    worst, reach = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for batch, l, groups in ((8, 512, 1), (1, 384, 2), (1, 300, 1)):
+            for decay in ("fast", "slow"):
+                x, a, B, C = _ssd_inputs(dev, gen, dtype, l, h, groups, decay, batch=batch)
+                with torch.no_grad():
+                    shapes = [o.shape for o in ssd_chunk_op_ref(x, a, B, C, Q)]
+                dy = torch.randn(shapes[0], device=dev, generator=gen).to(dtype)
+                dst, dde = (torch.randn(sh, device=dev, generator=gen) for sh in shapes[1:])
+                want = ssd_chunk_op_bwd_ref(x, a, B, C, Q, dy, dst, dde)
+                default = route(dtype, Q, 64, 128)
+                routes = [default] + [r for r in ("tensor_cores", "cuda_cores")
+                                      if r != default and (r == "cuda_cores"
+                                                           or tensor_cores_take(dtype, Q, 64, 128))]
+                for which in routes:
+                    leaves = [t.detach().clone().requires_grad_(True) for t in (x, a, B, C)]
+                    n_bwd, n_fwd = ssd_chunk_bwd.launches, ssd_chunk.route_launches[which]
+                    got = torch.autograd.grad(ssd_chunk_op(*leaves, Q, which=which), leaves,
+                                              (dy, dst, dde))
+                    check(ssd_chunk_bwd.launches == n_bwd + 1
+                          and ssd_chunk.route_launches[which] == n_fwd + 1,
+                          f"ssd_chunk_bwd after {which}: K4b or K4 did not launch once")
+                    errs = [max_err(g, w) / w.float().abs().max().item()
+                            for g, w in zip(got, want)]
+                    print(f"  ssd_chunk_bwd {str(dtype)[6:]} b={batch} l={l} heads={h} "
+                          f"groups={groups} chunk={Q} decay={decay} forward={which}: "
+                          f"dx {errs[0]:.3e} da {errs[1]:.3e} dB {errs[2]:.3e} "
+                          f"dC {errs[3]:.3e} of max (tol {TOL[dtype]})", flush=True)
+                    check(all(g.shape == w.shape and g.dtype == w.dtype
+                              and torch.isfinite(g).all().item() for g, w in zip(got, want))
+                          and max(errs) <= TOL[dtype],
+                          f"ssd_chunk_bwd {dtype} b={batch} l={l} g={groups} {decay} "
+                          f"after {which}: errors {errs} of max")
+                    worst[dtype] = max(worst.get(dtype, 0.0), *errs)
+                if decay == "slow":
+                    rch = _ssd_bwd_reach(x, a, B, C, Q, dy, dst)
+                    reach[f"{str(dtype)[6:]} l={l} g={groups}"] = rch
+                    print(f"  ssd_chunk_bwd reach {rch}", flush=True)
+                    check(max(rch["dx_far"], rch["dC_far"]) >= 5 * TOL[dtype]
+                          and rch["dx_states"] >= 5 * TOL[dtype],
+                          f"ssd_chunk_bwd {dtype} l={l} slow: the case cannot see distant "
+                          f"work: {rch}")
+    # the train shape, bf16: bits on two calls, times, bounds
+    x, a, B, C = _ssd_inputs(dev, gen, torch.bfloat16, 512, h, 1, "fast", batch=8)
+    b, l, _, P = x.shape
+    g, N = B.shape[2], B.shape[3]
+    with torch.no_grad():
+        y, st, de = ssd_chunk_op(x, a, B, C, Q)
+    dy = torch.randn(y.shape, device=dev, generator=gen).to(torch.bfloat16)
+    dst, dde = torch.randn_like(st), torch.randn_like(de)
+    args = (x, a, B, C, Q, dy, dst, dde)
+    first, second = ssd_chunk_op_bwd(*args), ssd_chunk_op_bwd(*args)
+    bits = all(_same_bits(u, v) for u, v in zip(first, second))
+    check(bits, "K4b gave other bits on a second call with the same inputs")
+    want = ssd_chunk_op_bwd_ref(*args)
+    abs_err = max(max_err(u, w) for u, w in zip(first, want))
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, a, B, C)]
+    plain_out = ssd_chunk_op_ref(*leaves, Q)
+
+    def eager_ms(fn, reps=5):
+        fn()
+        return _event_ms(lambda: [fn() for _ in range(reps)], reps)
+
+    nc = l // Q
+    tri = Q * (Q + 1) // 2
+    # S once per group; dM, M^T dy, dS B, dS^T C per head over the causal
+    # half; the state terms dstates B and dstates^T x per head
+    flops = 2 * b * nc * (g * tri * N + h * (2 * tri * P + 2 * tri * N + 2 * Q * N * P))
+    moved = nbytes(x, a, B, C, dy, dst, dde, *first)
+    xf, Bf, Cf, dyf = (t.float() for t in (x, B, C, dy))
+    moved_f32 = 2 * nbytes(xf, a, Bf, Cf) + nbytes(dyf, dst, dde)   # dx..dC are fp32 too
+    row = {
+        "name": "ssd_chunk_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_chunk_bwd.cu",
+        # no TPU kernel: XLA differentiates the JAX model's ssd_chunked
+        "replaces": "src/repro/models/ssm.py:33",
+        "shape": f"x, dy ({b}, {l}, {h}, {P}) bf16, a fp32, B,C ({b}, {l}, {g}, {N}) bf16, "
+                 f"chunk {Q}; dstates, ddecay fp32",
+        "max_abs_err": abs_err,
+        "max_err_of_max": worst[torch.bfloat16], "max_err_of_max_f32": worst[torch.float32],
+        "bits_equal_twice": bits,
+        **timed("ms", lambda: ssd_chunk_op_bwd(*args), 10),
+        **timed("f32_ms", lambda: ssd_chunk_op_bwd(xf, a, Bf, Cf, Q, dyf, dst, dde), 10),
+        **timed("plain_ms", lambda: ssd_chunk_op_bwd_ref(*args), 3),
+        "autograd_plain_ms": eager_ms(lambda: torch.autograd.grad(
+            plain_out, leaves, (dy, dst, dde), retain_graph=True)),
+        "library_ms": None,            # no single PyTorch call computes it
+        "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
+        else "bytes",
+        # the fp32 call's own bound: its bytes, or its operations at the
+        # card's fp32 peak outside the tensor cores
+        "f32_bound_ms": max(flops / FP32_FLOPS, moved_f32 / HBM_BYTES_PER_S) * 1e3,
+        "flops": flops, "bytes": moved, "bytes_f32": moved_f32, "reach": reach,
+    }
+    print(f"  ssd_chunk_bwd train shape: ms={row['ms']:.4f} eager_ms={row['eager_ms']:.4f} "
+          f"f32_ms={row['f32_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+          f"autograd_plain_ms={row['autograd_plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
+          f"f32_bound_ms={row['f32_bound_ms']:.5f} "
+          f"({row['bound_by']}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)", flush=True)
+    return row
+
+
 def _ssd_op_on(which: str):
     """``ssd_op`` (and so the model) with K4 forced onto route ``which``."""
     import functools
@@ -891,7 +1074,7 @@ def _gqa_gaps(dev, gen, kind, B, H, G, D, T, kv_len=None):
 def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = [_relay_case(dev, gen), _flash_case(dev, gen), _decode_case(dev, gen),
-            _ssd_case(dev, gen)]
+            _ssd_case(dev, gen), _ssd_bwd_case(dev, gen)]
     # how far the kernels (and their plain versions) lie from JAX's bf16
     # attention at served shapes: TinyLlama's prefill and decode, gemma's D 256
     rows[1]["gqa_bf16"] = {"tinyllama": _gqa_gaps(dev, gen, "K3", 1, 32, 4, 64, 512)}
@@ -1519,6 +1702,7 @@ def phase_serve_ssm(dev):
           f"{cfg.n_layers} times, all on the CUDA cores")
     check(counts["flash_attention"] == counts["decode_attention"] == 0,
           "an attention kernel ran on the attention-free model")
+    check(counts["ssd_chunk_bwd"] == 0, "K4b launched while serving")
     report("serve-ssm", **fields)
     return counts
 
@@ -1957,8 +2141,8 @@ def _dist_mamba2(dev, mesh):
           and counts[f"ssd_chunk:{served}"] == counts["ssd_chunk"],
           f"K4 under the mesh {counts}: want {cfg.n_layers} a prefill, twice, all on "
           f"its default route {served}")
-    check(counts["flash_attention"] == counts["decode_attention"] == 0,
-          "an attention kernel ran on the attention-free model")
+    check(counts["flash_attention"] == counts["decode_attention"] == counts["ssd_chunk_bwd"]
+          == 0, "an attention kernel, or K4b, ran on the served attention-free model")
     check(all(torch.isfinite(l).all().item() and l.shape == (1, cfg.vocab)
               for l in mesh_logits), "Mamba2's logits under the mesh are not finite (1, vocab)")
     logits_equal = all(_same_bits(a, b) for a, b in zip(mesh_logits, free_logits))
@@ -2366,6 +2550,163 @@ def _probing_k3_grad(forward_errs, backward_errs):
 
 
 @contextlib.contextmanager
+def _probing_k4_grad(forward_errs, backward_errs):
+    """K4 through SSDChunkFn as the model calls it: each forward (K4 on its
+    default route) held to the plain version on the same inputs and each
+    backward (K4b) to ``ssd_chunk_op_bwd_ref`` on the same inputs and
+    cotangents, each output or gradient as max |difference| relative to
+    its largest magnitude (the worst of the three outputs, of the four
+    gradients), appended to the two lists. The inputs ride on
+    ``ctx.probe_inputs``, as in ``_probing_k3_grad``."""
+    from repro_torch.kernels import SSDChunkFn, ssd_chunk_op_bwd_ref, ssd_chunk_op_ref
+
+    kernel_forward, kernel_backward = SSDChunkFn.forward, SSDChunkFn.backward
+
+    def rel(a, b):
+        return max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+    def forward(ctx, xbar, a, B, C, chunk, which):
+        out = kernel_forward(ctx, xbar, a, B, C, chunk, which)
+        ref = ssd_chunk_op_ref(xbar, a, B, C, chunk)
+        forward_errs.append(max(rel(o, r) for o, r in zip(out, ref)))
+        ctx.probe_inputs = (xbar, a, B, C)
+        return out
+
+    def backward(ctx, dy, dstates, ddecay):
+        grads = kernel_backward(ctx, dy, dstates, ddecay)
+        want = ssd_chunk_op_bwd_ref(*ctx.probe_inputs, ctx.chunk, dy, dstates, ddecay)
+        backward_errs.append(max(rel(g, w) for g, w in zip(grads[:4], want)))
+        return grads
+
+    with mock.patch.object(SSDChunkFn, "forward", staticmethod(forward)), \
+            mock.patch.object(SSDChunkFn, "backward", staticmethod(backward)):
+        yield
+
+
+@contextlib.contextmanager
+def _plain_ssd_grad(fwd_noise: float = 0.0, bwd_noise: float = 0.0):
+    """SSDChunkFn with both plain versions: the forward ``ssd_chunk_op_ref``,
+    the backward ``ssd_chunk_op_bwd_ref`` (the closed form; autograd
+    through the plain forward gives NaN for a where slow decays overflow
+    exp above the diagonal). ``fwd_noise`` gives the forward's y_diag, and
+    ``bwd_noise`` the backward's dx, dB and dC, that relative noise in
+    fp32 before their rounding to the inputs' dtype (a seeded draw): a
+    noise control, which reads how far the model carries a change of a
+    few roundings."""
+    import importlib
+
+    from repro_torch.kernels import ssd_chunk_op_bwd_ref, ssd_chunk_op_ref
+
+    ops = importlib.import_module("repro_torch.kernels.ssd_chunk.ops")
+    gens = {}
+
+    def noisy(t, eta):
+        if t.device not in gens:
+            gens[t.device] = torch.Generator(device=t.device).manual_seed(0)
+        return t * (1 + eta * torch.randn(t.shape, device=t.device, generator=gens[t.device]))
+
+    def forward(x, a, B, C, chunk, which):
+        if not fwd_noise:
+            return ssd_chunk_op_ref(x, a, B, C, chunk)
+        y, states, decay = ssd_chunk_op_ref(x.float(), a, B.float(), C.float(), chunk)
+        return noisy(y, fwd_noise).to(x.dtype), states, decay
+
+    def backward(x, a, B, C, chunk, dy, dstates, ddecay):
+        if not bwd_noise:
+            return ssd_chunk_op_bwd_ref(x, a, B, C, chunk, dy, dstates, ddecay)
+        dx, da, dB, dC = ssd_chunk_op_bwd_ref(x.float(), a, B.float(), C.float(), chunk,
+                                              dy, dstates, ddecay)
+        return (noisy(dx, bwd_noise).to(x.dtype), da,
+                *(noisy(t, bwd_noise).to(B.dtype) for t in (dB, dC)))
+
+    with mock.patch.object(ops, "_forward", forward), \
+            mock.patch.object(ops, "ssd_chunk_op_bwd", backward):
+        yield
+
+
+def _leaf_errs(names, leaves, plain) -> dict:
+    """Each leaf's max |difference| from ``plain``'s relative to the plain
+    leaf's max: {"worst": [leaf, err], "median": err}."""
+    errs = {n: max_err(g, q) / q.float().abs().max().item()
+            for n, g, q in zip(names, leaves, plain)}
+    worst = max(errs, key=errs.get)
+    return {"worst": [worst, errs[worst]], "median": float(np.median(list(errs.values())))}
+
+
+def _grad_noise_study(grads_of, names, plain_grads, etas=(1e-7, 1e-6, 1e-5)):
+    """The noise control of an end-to-end gradient check: each leaf's
+    max |difference| relative to its max between the plain path
+    (``_plain_ssd_grad``) and the plain path run again, and with
+    ``etas`` of relative noise in K4's y_diag or in K4b's dx, dB and dC
+    before their rounding. ``grads_of(ctx)`` gives the leaves' gradients
+    under ``ctx``. Returns {"plain_again" | "forward eta" | "backward eta":
+    {"worst": [leaf, err], "median": err}}."""
+    runs = {"plain_again": {}}
+    for eta in etas:
+        runs[f"forward {eta:.0e}"] = {"fwd_noise": eta}
+        runs[f"backward {eta:.0e}"] = {"bwd_noise": eta}
+    return {k: _leaf_errs(names, grads_of(_plain_ssd_grad(**kw)), plain_grads)
+            for k, kw in runs.items()}
+
+
+def _reduced_grad_study(dev):
+    """The card tests' reduced models (Mamba2 in fp32 and bf16, one jamba
+    period without experts in bf16; seed-0 weights, 2 x 100 tokens): each
+    leaf's gradient on the kernels' path (K4, K4b, K3 and its gradient)
+    against the plain path (``_plain_ssd_grad``, K3's plain version), with
+    K4 forced onto the CUDA cores, and the plain path's noise control
+    (``_grad_noise_study``). For Mamba2 also the plain path that autograd
+    takes through the plain forward: its leaves that are not finite, and
+    its distance from the closed form's. Reported, not gated."""
+    import dataclasses
+    import importlib
+
+    import repro_torch.models.attention as attention
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention_op_ref, ssd_chunk_op_ref
+    from repro_torch.models import init_params
+    from repro_torch.training.train_loop import loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    ops = importlib.import_module("repro_torch.kernels.ssd_chunk.ops")
+    out = {}
+    for name, overrides, dtype in (("mamba2-370m", {}, torch.float32),
+                                   ("mamba2-370m", {}, torch.bfloat16),
+                                   ("jamba-1.5-large-398b", dict(n_experts=0, n_layers=8),
+                                    torch.bfloat16)):
+        cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype, **overrides)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+        toks = torch.from_numpy(
+            np.random.default_rng(0).integers(0, cfg.vocab, (2, 101))).long().to(dev)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+        def grads_of(ctx, plain_k3=True):
+            with ctx, (mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref)
+                       if plain_k3 else contextlib.nullcontext()):
+                return tree_leaves(loss_and_grads(params, batch, cfg)[2])
+
+        names = ["/".join(str(k).strip("[]'") for k in path)
+                 for path, _ in tree_leaves_with_path(params)]
+        plain = grads_of(_plain_ssd_grad())
+        row = {"kernels": _leaf_errs(names, grads_of(contextlib.nullcontext(), plain_k3=False),
+                                     plain),
+               "k4_cuda_cores": _leaf_errs(names, grads_of(_ssd_op_on("cuda_cores"),
+                                                           plain_k3=False), plain),
+               "plain_noise": _grad_noise_study(grads_of, names, plain)}
+        if name == "mamba2-370m":
+            autograd = grads_of(mock.patch.object(
+                ops, "ssd_chunk_op", lambda x, a, B, C, chunk, which=None:
+                ssd_chunk_op_ref(x, a, B, C, chunk)))
+            row["plain_autograd"] = dict(
+                not_finite=[n for n, g in zip(names, autograd) if not torch.isfinite(g).all()],
+                **_leaf_errs(names, autograd, plain))
+        key = f"{name} {str(dtype)[6:]}"
+        out[key] = row
+        print(f"  train-ssm reduced {key}: {row}", flush=True)
+    return out
+
+
+@contextlib.contextmanager
 def _timing_engine(totals):
     """The checkpoint's multipath_device_get / _put calls, each timed on the
     host clock (a put until the card has the leaf, a get until the host
@@ -2543,9 +2884,10 @@ def phase_train(dev):
     check(int(state.step) == 8, f"AdamW took {int(state.step)} steps, want 8")
     k3_want = 4 * 2 * cfg.n_layers + 4 * 2 * 2 * cfg.n_layers
     check(counts["flash_attention"] == k3_want and counts["relay_assemble"] == moved
-          and counts["decode_attention"] == 0 and counts["ssd_chunk"] == 0,
+          and counts["decode_attention"] == 0
+          and counts["ssd_chunk"] == counts["ssd_chunk_bwd"] == 0,
           f"launches {counts}: want K3 {k3_want} (forward + remat per layer and "
-          f"microbatch), K1 {moved}, K2 and K4 0")
+          f"microbatch), K1 {moved}, K2, K4 and K4b 0")
     # steps after each call's first, by microbatch count
     steady = {mb: step_ms[i + 1:i + 4] for mb, i in ((1, 0), (2, 4))}
     # one more step with one microbatch, traced (after the counted path)
@@ -2574,6 +2916,148 @@ def phase_train(dev):
         main_path_s=main_s, peak_mem_GB=peak / 1e9, allocated_at_start_GB=start_alloc / 1e9,
         traced_step=trace, launches=counts)
     report("train", **fields)
+    return counts
+
+
+def phase_train_ssm(dev):
+    """Mamba2 trained on the card: mamba2-370m at full width and depth in
+    bf16 (random weights from seed 0) through ``repro_torch.training.train``
+    on ``SyntheticTokenStream`` batches of 8 x 512 tokens, remat on, AdamW
+    (lr 1e-3, warmup 2): 4 steps, then 4 more from the returned state. K4
+    runs forward and again under remat in every layer (on its default
+    route, the tensor cores); its gradient is K4b, once a layer a step.
+
+    Before the counted path, step 1's gradient (the same parameters and
+    first batch) is computed apart: every K4 forward and K4b backward in it
+    is probed against its plain version on the same inputs and cotangents
+    (2e-2 of each output's or gradient's max), its loss is held within 1e-2
+    relative of the plain path's (SSDChunkFn with both plain versions), and
+    every leaf's gradient (A_log, dt_bias, D and the conv weights included)
+    must be finite and not all zero; the leaves' errors against the plain
+    path are reported, again with K4 forced onto the CUDA cores (which
+    round as the plain version does), and beside the plain path's own
+    noise control (``_grad_noise_study``), as are the card tests' reduced
+    models (``_reduced_grad_study``). Gated on the counted path: 96 K4 and
+    48 K4b launches a step, nothing else, every loss finite and the loss
+    falling over the 8 steps. One more step is traced (device ms, idle
+    share, top kernels)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import init_params, param_bytes, tree_bytes
+    from repro_torch.training import AdamWConfig, DataConfig, SyntheticTokenStream, \
+        TrainConfig, make_train_step, train
+    from repro_torch.training.train_loop import loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    cfg = get_config("mamba2-370m")               # full width and depth, bf16
+    check(cfg.dtype == torch.bfloat16, "mamba2-370m must default to bf16")
+    stream = SyntheticTokenStream(DataConfig(vocab=cfg.vocab, seq_len=512, global_batch=8))
+    tokens = stream.cfg.global_batch * stream.cfg.seq_len
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    check(tree_bytes(params) == param_bytes(cfg) == 839_653_376,
+          f"{tree_bytes(params)} bytes of parameters, {param_bytes(cfg)} in the leaves, "
+          f"want 839,653,376")
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in stream.next_batch().items()}
+    stream.seek(0)
+
+    # step 1's gradient, probed, and the plain path's (not counted)
+    fwd_errs, bwd_errs = [], []
+    with _probing_k4_grad(fwd_errs, bwd_errs):
+        loss, _, grads = loss_and_grads(params, batch, cfg)
+    with _plain_ssd_grad():
+        plain_loss, _, plain_grads = loss_and_grads(params, batch, cfg)
+    # K4 forced onto the CUDA cores, which round as the plain version does
+    with _ssd_op_on("cuda_cores"):
+        _, _, cc_grads = loss_and_grads(params, batch, cfg)
+    names = ["/".join(str(k).strip("[]'") for k in path)
+             for path, _ in tree_leaves_with_path(grads)]
+    grads, plain_grads = tree_leaves(grads), tree_leaves(plain_grads)
+    loss_rel = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+    bad = [n for n, g in zip(names, grads)
+           if not (torch.isfinite(g).all().item() and g.abs().max().item() > 0)]
+
+    def rel_errs(leaves):
+        return {n: max_err(g, q) / q.float().abs().max().item()
+                for n, g, q in zip(names, leaves, plain_grads)}
+
+    grad_rel, cc_rel = rel_errs(grads), rel_errs(tree_leaves(cc_grads))
+    del cc_grads
+
+    def grads_of(ctx):
+        with ctx:
+            return tree_leaves(loss_and_grads(params, batch, cfg)[2])
+
+    noise = _grad_noise_study(grads_of, names, plain_grads)
+    print(f"  train-ssm step 1 noise control (the plain path against itself): {noise}",
+          flush=True)
+    reduced = _reduced_grad_study(dev)
+    probes = {"k4_forward": {"calls": len(fwd_errs), "max_rel_err": max(fwd_errs)},
+              "k4b_backward": {"calls": len(bwd_errs), "max_rel_err": max(bwd_errs)}}
+    worst_leaf = max(grad_rel, key=grad_rel.get)
+    print(f"  train-ssm step 1: loss {loss.item():.5f}, plain path {plain_loss.item():.5f} "
+          f"({loss_rel:.3e} relative); probes {probes}; end-to-end gradient errors against "
+          f"the plain path, worst leaf {worst_leaf} {grad_rel[worst_leaf]:.3e} (median "
+          f"{np.median(list(grad_rel.values())):.3e}); with K4 on the CUDA cores worst "
+          f"{max(cc_rel.values()):.3e}", flush=True)
+    check(not bad, f"gradients not finite or all zero at step 1: {bad}")
+    check(len(fwd_errs) == 2 * cfg.n_layers and len(bwd_errs) == cfg.n_layers,
+          f"{len(fwd_errs)} K4 forwards and {len(bwd_errs)} K4b backwards in step 1: want "
+          f"{2 * cfg.n_layers} (forward + remat) and {cfg.n_layers}")
+    check(max(fwd_errs) <= TOL[torch.bfloat16] and max(bwd_errs) <= TOL[torch.bfloat16],
+          f"K4 or K4b differs from its plain version on the same inputs: {probes}")
+    check(loss_rel <= 1e-2, f"step 1 loss differs from the plain path's: {loss_rel:.3e}")
+    del grads, plain_grads
+
+    opt = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()                        # --- the main path starts here
+    t_main = time.monotonic()
+    params, state, first = train(
+        cfg, params, iter(stream),
+        TrainConfig(steps=4, microbatches=1, log_every=1, remat=True, opt=opt), device=dev)
+    params, state, second = train(
+        cfg, params, iter(stream),
+        TrainConfig(steps=4, microbatches=1, log_every=1, remat=True, opt=opt), device=dev,
+        opt_state=state)
+    torch.cuda.synchronize()
+    counts = _counts()                           # --- the main path ends here
+    main_s = time.monotonic() - t_main
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    losses = [h["loss"] for h in first + second]
+    wall = [[0.0] + [h["wall_s"] for h in hist] for hist in (first, second)]
+    step_ms = [1e3 * (b - a) for w in wall for a, b in zip(w, w[1:])]
+    check(len(losses) == 8 and all(np.isfinite(losses)), f"losses not finite: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(int(state.step) == 8, f"AdamW took {int(state.step)} steps, want 8")
+    want = {"ssd_chunk": 8 * 2 * cfg.n_layers, "ssd_chunk_bwd": 8 * cfg.n_layers,
+            "ssd_chunk:tensor_cores": 8 * 2 * cfg.n_layers}
+    check(all(counts[k] == v for k, v in want.items())
+          and all(n == 0 for k, n in launch_counts().items() if k not in want),
+          f"launches {counts}: want {want} (96 K4 forwards, forward + remat, and 48 K4b "
+          f"a step) and no other kernel")
+    steady = step_ms[1:4] + step_ms[5:]           # each train call's first step apart
+    step_fn = make_train_step(cfg, TrainConfig(microbatches=1, remat=True, opt=opt))
+    batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+             for k, v in stream.next_batch().items()}
+    step_fn(params, state, batch)                # warm, then one step traced
+    trace = _device_time(lambda: step_fn(params, state, batch), top=16)
+    if trace["device_ms"] != "not measured":
+        trace["k4b_share"] = sum(k["ms"] for k in trace["top"]
+                                 if "ssd_chunk_bwd" in k["name"]) / trace["device_ms"]
+    report("train-ssm", model=cfg.name, params=sum(t.numel() for t in tree_leaves(params)),
+           weight_bytes=param_bytes(cfg), batch=[8, 512], lr=opt.lr,
+           warmup_steps=opt.warmup_steps, losses=losses, step_ms=step_ms,
+           tokens_per_s=tokens / (np.mean(steady) / 1e3),
+           grad_norms=[h["grad_norm"] for h in first + second],
+           step1_loss=loss.item(), step1_loss_plain=plain_loss.item(),
+           step1_loss_rel_err=loss_rel, step1_grad_rel_err_worst_leaf=[
+               worst_leaf, grad_rel[worst_leaf]], step1_grad_rel_err=grad_rel,
+           step1_grad_rel_err_k4_cuda_cores=cc_rel, step1_grad_rel_err_plain_noise=noise,
+           reduced_models=reduced, **probes,
+           main_path_s=main_s, peak_mem_GB=peak / 1e9, traced_step=trace, launches=counts)
     return counts
 
 
@@ -2635,21 +3119,21 @@ def phase_launch_serve(dev):
     return counts
 
 
-def phase_launch_train(dev):
-    """The training entry point: ``repro_torch.launch.train.main`` with
-    ``--arch tinyllama-1.1b --no-reduced --steps 4 --device cuda``: fp32 at
-    full width and depth, the JAX launcher's batch 8 x seq 128, remat, AdamW
-    (lr 1e-3, warmup 10), the parameters and moments as DTensors on a
-    one-rank NCCL mesh from ``make_host_mesh`` (the launcher starts the
-    world and ends it). K3 runs its fp32 kernel forward and under remat.
-    Gated: every loss finite, and step 0's loss within 1e-3 relative of
-    ``loss_fn`` through the plain path (K3's plain version, no mesh) on the
-    same initial parameters and first batch (not counted)."""
+def _launch_train(dev, arch, plain_path, probe=None):
+    """``repro_torch.launch.train.main`` with ``--arch ARCH --no-reduced
+    --steps 4 --device cuda``, counted: its history, config, launch
+    counts, step 0's loss through ``loss_fn`` on the same initial
+    parameters and first batch under ``plain_path`` (no mesh, not
+    counted), and its ms and peak GB. With ``probe`` (``_probing_k4_grad``)
+    step 0's gradient is taken again on those parameters and that batch (no
+    mesh, not counted) with every kernel forward and backward held to its
+    plain version on the same inputs (and cotangents), within fp32's
+    tolerance of each output's or gradient's max."""
     import repro_torch.launch.train as launch_train
-    import repro_torch.models.attention as attention
-    from repro_torch.kernels import flash_attention_op_ref, reset_launch_counts
+    from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import loss_fn
     from repro_torch.training import DataConfig, SyntheticTokenStream
+    from repro_torch.training.train_loop import loss_and_grads
 
     initial = {}
     make_params = launch_train.init_params
@@ -2658,7 +3142,7 @@ def phase_launch_train(dev):
         initial["cfg"], initial["params"] = cfg, make_params(cfg, gen, device)
         return initial["params"]
 
-    argv = ["--arch", "tinyllama-1.1b", "--no-reduced", "--steps", "4", "--device", "cuda"]
+    argv = ["--arch", arch, "--no-reduced", "--steps", "4", "--device", "cuda"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()                        # --- the main path starts here
@@ -2674,29 +3158,79 @@ def phase_launch_train(dev):
     batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev) for k, v in
              SyntheticTokenStream(DataConfig(vocab=cfg.vocab, seq_len=128,
                                              global_batch=8)).next_batch().items()}
-    with torch.no_grad(), \
-            mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref):
+    with torch.no_grad(), plain_path():
         plain = loss_fn(initial["params"], batch, cfg)[0].item()
+    probes = {}
+    if probe is not None:
+        fwd_errs, bwd_errs = [], []
+        with probe(fwd_errs, bwd_errs):
+            loss_and_grads(initial["params"], batch, cfg)
+        probes = {"step0_probes": {"forward": {"calls": len(fwd_errs),
+                                               "max_rel_err": max(fwd_errs, default=None)},
+                                   "backward": {"calls": len(bwd_errs),
+                                                "max_rel_err": max(bwd_errs, default=None)}}}
+        print(f"  launch-train {arch} step 0 probes {probes['step0_probes']}", flush=True)
+        check(len(fwd_errs) == 2 * cfg.n_layers and len(bwd_errs) == cfg.n_layers
+              and max(fwd_errs + bwd_errs) <= TOL[torch.float32],
+              f"{arch}: step 0's kernel calls against their plain versions: {probes}")
     del initial
     losses = [h["loss"] for h in history]
     rel = abs(losses[0] - plain) / abs(plain)
     wall = [0.0] + [h["wall_s"] for h in history]
     step_ms = [1e3 * (b - a) for a, b in zip(wall, wall[1:])]
+    check(len(losses) == 4 and all(np.isfinite(losses)), f"{arch}: losses not finite: {losses}")
+    check(rel <= 1e-3, f"{arch}: step 0's loss {losses[0]} is {rel:.3e} off the plain "
+          f"path's {plain}")
+    return cfg, counts, dict(
+        model=cfg.name, entry="repro_torch.launch.train.main", argv=argv, dtype="float32",
+        batch=[8, 128], losses=losses, grad_norms=[h["grad_norm"] for h in history],
+        step0_loss_plain=plain, step0_loss_rel_err=rel, step_ms=step_ms,
+        tokens_per_s=8 * 128 / (np.mean(step_ms[1:]) / 1e3), main_s=main_s,
+        peak_mem_GB=peak / 1e9, **probes, launches=counts)
+
+
+def phase_launch_train(dev):
+    """The training entry point: ``repro_torch.launch.train.main`` with
+    ``--no-reduced --steps 4 --device cuda``: fp32 at full width and depth,
+    the JAX launcher's batch 8 x seq 128, remat, AdamW (lr 1e-3, warmup 10),
+    the parameters and moments as DTensors on a one-rank NCCL mesh from
+    ``make_host_mesh`` (the launcher starts the world and ends it), for
+    ``--arch tinyllama-1.1b`` (K3's fp32 kernel forward and under remat;
+    path launch-train) and then ``--arch mamba2-370m`` (K4's CUDA-core
+    kernel forward and under remat, its gradient K4b in fp32, through the
+    mixer's ``shard_map``; path launch-train:mamba2-370m). Gated: every
+    loss finite, step 0's loss within 1e-3 relative of ``loss_fn`` through
+    the plain path (the kernels' plain versions, no mesh) on the same
+    initial parameters and first batch (not counted), for Mamba2 step 0's
+    96 K4 and 48 K4b calls each within 1e-4 of its plain version on the
+    same inputs at this path's shape (one ragged chunk of 128; not
+    counted), and the launch counts. Returns the two paths' counts."""
+    import repro_torch.models.attention as attention
+    from repro_torch.kernels import flash_attention_op_ref
+
+    cfg, counts, fields = _launch_train(dev, "tinyllama-1.1b", lambda: mock.patch.object(
+        attention, "flash_attention_op", flash_attention_op_ref))
     check(cfg.dtype == torch.float32 and cfg.d_model == 2048 and cfg.n_layers == 22,
           f"--no-reduced gave {cfg.name} d {cfg.d_model} x {cfg.n_layers} in {cfg.dtype}")
-    check(len(losses) == 4 and all(np.isfinite(losses)), f"losses not finite: {losses}")
-    check(rel <= 1e-3, f"step 0's loss {losses[0]} is {rel:.3e} off the plain path's {plain}")
     k3_want = 4 * 2 * cfg.n_layers
     check(counts["flash_attention"] == k3_want and counts["decode_attention"] == 0
-          and counts["ssd_chunk"] == 0,
-          f"launches {counts}: want K3 {k3_want} (forward + remat per layer), K2 and K4 0")
-    report("launch-train", model=cfg.name, entry="repro_torch.launch.train.main",
-           argv=argv, dtype="float32", batch=[8, 128], losses=losses,
-           grad_norms=[h["grad_norm"] for h in history], step0_loss_plain=plain,
-           step0_loss_rel_err=rel, step_ms=step_ms,
-           tokens_per_s=8 * 128 / (np.mean(step_ms[1:]) / 1e3), main_s=main_s,
-           peak_mem_GB=peak / 1e9, launches=counts)
-    return counts
+          and counts["ssd_chunk"] == counts["ssd_chunk_bwd"] == 0,
+          f"launches {counts}: want K3 {k3_want} (forward + remat per layer), K2, K4 and "
+          f"K4b 0")
+    ssm_cfg, ssm_counts, ssm_fields = _launch_train(dev, "mamba2-370m", _plain_ssd_grad,
+                                                    probe=_probing_k4_grad)
+    check(ssm_cfg.dtype == torch.float32 and ssm_cfg.d_model == 1024
+          and ssm_cfg.n_layers == 48,
+          f"--no-reduced gave {ssm_cfg.name} d {ssm_cfg.d_model} x {ssm_cfg.n_layers} in "
+          f"{ssm_cfg.dtype}")
+    n = ssm_cfg.n_layers
+    check(ssm_counts["ssd_chunk"] == ssm_counts["ssd_chunk:cuda_cores"] == 4 * 2 * n
+          and ssm_counts["ssd_chunk_bwd"] == 4 * n
+          and ssm_counts["flash_attention"] == ssm_counts["decode_attention"] == 0,
+          f"launches {ssm_counts}: want K4 {4 * 2 * n} on the CUDA cores (fp32; forward + "
+          f"remat per layer), K4b {4 * n}, K3 and K2 0")
+    report("launch-train", **fields, mamba2=ssm_fields)
+    return counts, ssm_counts
 
 
 DRYRUNS = {          # name: (arch, extra arguments, the meshes' rank counts)
@@ -2784,8 +3318,10 @@ def main(argv=None) -> int:
             ("serve-gemma", lambda: counts.update(zip(
                 ("serve-gemma", "serve-gemma:launch-serve"), phase_serve_gemma(dev)))),
             ("train", lambda: counts.update(train=phase_train(dev))),
+            ("train-ssm", lambda: counts.update({"train-ssm": phase_train_ssm(dev)})),
             ("launch-serve", lambda: counts.update({"launch-serve": phase_launch_serve(dev)})),
-            ("launch-train", lambda: counts.update({"launch-train": phase_launch_train(dev)})),
+            ("launch-train", lambda: counts.update(zip(
+                ("launch-train", "launch-train:mamba2-370m"), phase_launch_train(dev)))),
             ("dryrun", phase_dryrun),
         ):
             t0 = time.monotonic()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time edited variants of the port's hand-written kernels on one NVIDIA card.
 
-    python3 kernel_variants.py {k2,k3,k4} [--out DIR]
+    python3 kernel_variants.py {k2,k3,k4,k4b} [--out DIR]
 
 Each variant is the kernel's CUDA source (``src/repro_torch/csrc``) with
 a few text edits applied, built with nvcc into a library of its own (one
@@ -11,13 +11,15 @@ CUDA-graph replay of 20 calls, eager ms from the same calls issued back to
 back. An edit whose text is not in the source fails the run, so a variant
 cannot silently time the unedited kernel. The PyTorch library call for the
 same function (SDPA, for K3 and K2; K4 has none) is timed beside each
-case. The sets below hold the design choices behind the present K3, K2 and
-K4's tensor-core route: each variant undoes or changes one of them, by
+case. The sets below hold the design choices behind the present K3, K2,
+K4's tensor-core route and K4b: each variant undoes or changes one of them, by
 text edits or, where the change is a whole design, as another source
 (K4's former design, ``csrc/variants/``). A
 variant listed as report-only prints its errors without failing the run:
 those are the ones whose point is the error they cause, or that leave
-part of the work out to time the rest. Each variant's edited source and nvcc log stay under
+part of the work out to time the rest (K4b's set also holds its two
+mutants, each of which must miss its slow cases by far more than the
+tolerance). Each variant's edited source and nvcc log stay under
 ``--out`` (default ``build/kernel_variants``, git-ignored).
 
 Needs a CUDA card, nvcc (PATH or /usr/local/cuda/bin) and the repository's
@@ -88,6 +90,45 @@ SETS = {
         {"S o L in two bf16 parts", "S o L as bf16 alone", "x o w as bf16 alone",
          "y items alone", "state items alone", "no item work (fixed costs)"}),
 }
+
+_K4B_ROW = "      scores(crow, dyr, bt, xt, warp, N, P4, lane, s, dm);\n"
+_K4B_COL = "    scores(crow, dyr, bt, xt, warp, N, P4, lane, s, dm);\n"
+_K4B_NO_S = "    for (int k = 0; k < kRows; ++k) s[k] = dm[k] = crow[k] * bt[lane];\n"
+_K4B_ITEM = "  if (o0 >= valid) return;             // uniform over the block"
+_K4B_DX = "  if (act_p) {\n    float v[AP];"
+_K4B_DB = "  if (act_n) {\n    float v[AN];"
+SETS["k4b"] = ("ssd_chunk_bwd.cu", {
+    "as built": [],
+    "no products": [("if (act_n) accumulate(acc,", "if (false) accumulate(acc,"),
+                    ("if (act_p) accumulate(ax,", "if (false) accumulate(ax,"),
+                    ("if (act_n) accumulate(ab,", "if (false) accumulate(ab,")],
+    "no scores": [(_K4B_ROW, "  " + _K4B_NO_S), (_K4B_COL, _K4B_NO_S)],
+    "no state terms": [(_K4B_DX, _K4B_DX.replace("act_p", "false")),
+                       (_K4B_DB, _K4B_DB.replace("act_n", "false"))],
+    "no staging after the first tile": [
+        ("      stage_cols<T>(bt, Bb, A.bst, j0, valid, N, N);\n"
+         "      stage_cols<T>(xt, xb, A.xst, j0, valid, P, P4);",
+         "      if (j0 == 0) {\n      stage_cols<T>(bt, Bb, A.bst, j0, valid, N, N);\n"
+         "      stage_cols<T>(xt, xb, A.xst, j0, valid, P, P4); }"),
+        ("    stage_rows<T>(crow, Cb, A.cst, i0, valid, N, N);\n"
+         "    stage_rows<T>(dyr, dyb, A.dyst, i0, valid, P, P4);",
+         "    if (i0 == o0) {\n    stage_rows<T>(crow, Cb, A.cst, i0, valid, N, N);\n"
+         "    stage_rows<T>(dyr, dyb, A.dyst, i0, valid, P, P4); }")],
+    "row items alone": [(_K4B_ITEM, "  if (o0 >= valid || column) return;")],
+    "column items alone": [(_K4B_ITEM, "  if (o0 >= valid || !column) return;")],
+    # mutants: each must fail the slow cases
+    "mutant: key tiles 2+ below the row tile dropped": [
+        ("for (int j0 = 0; j0 < i_end; j0 += kT)",
+         "for (int j0 = max(0, o0 - kT); j0 < i_end; j0 += kT)"),
+        ("for (int i0 = o0; i0 < valid; i0 += kT)",
+         "for (int i0 = o0; i0 < min(valid, o0 + 2 * kT); i0 += kT)")],
+    "mutant: state terms dropped": [
+        ("v[k] * expf(cs_last - cs[o0 + key]) : 0.f;", "0.f : 0.f;"),
+        ("ab[k] = fmaf(expf(cs_last - cs[o0 + key]), v[k], ab[k]);", "(void)v;")],
+}, [(torch.bfloat16, "fast"), (torch.bfloat16, "slow"), (torch.float32, "slow")],
+    {"no products", "no scores", "no state terms", "no staging after the first tile",
+     "row items alone", "column items alone", "mutant: key tiles 2+ below the row tile dropped",
+     "mutant: state terms dropped"})
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -219,6 +260,55 @@ def k4_cases(lib, cases, dev, gen):
     return rows
 
 
+def k4b_cases(lib, cases, dev, gen):
+    """K4b at Mamba2-370m's train shape (8 x 512 tokens, 32 heads of 64, one
+    group of N = 128, chunk 256) through its C entry point, at fast and
+    slow decays: dx, da, dB and dC against ``ssd_chunk_op_bwd_ref`` on the
+    same inputs and cotangents, each divided by that gradient's largest
+    magnitude, so the errors printed are relative to it and the tolerance
+    is x's dtype's (bf16 2e-2, fp32 1e-4), as in ``chip_smoke.py``."""
+    from chip_smoke import TOL, _ssd_inputs
+    from repro_torch.kernels import ssd_chunk_op_bwd_ref, ssd_chunk_op_ref
+    from repro_torch.kernels.build import _SIGNATURES
+    from repro_torch.kernels.flash_attention.flash_attention import DTYPES
+
+    fn = lib.ssd_chunk_bwd_launch
+    fn.argtypes = _SIGNATURES["ssd_chunk_bwd_launch"]
+    fn.restype = _I
+    b, l, h, g, Q = 8, 512, 32, 1, 256
+    rows = []
+    for dtype, decay in cases:
+        x, a, B, C = _ssd_inputs(dev, gen, dtype, l, h, g, decay, batch=b)
+        y, states, decays = ssd_chunk_op_ref(x, a, B, C, Q)
+        dy = torch.randn(y.shape, device=dev, generator=gen).to(dtype)
+        dst, dde = torch.randn_like(states), torch.randn_like(decays)
+        dx, da = torch.empty_like(x), torch.empty_like(a)
+        dBh, dCh = (torch.empty(b, l, h, B.shape[-1], device=dev) for _ in range(2))
+        scratch = torch.empty(3 * b * h * states.shape[2] * Q, device=dev)
+        ts = (x, a, B, C, dy, dx, da, dBh, dCh)
+
+        def run(x=x, a=a, B=B, C=C, dy=dy, dst=dst, dde=dde, dx=dx, da=da, dBh=dBh,
+                dCh=dCh, scratch=scratch, ts=ts, dtype=dtype):
+            rc = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+                    dst.data_ptr(), dde.data_ptr(), dx.data_ptr(), da.data_ptr(),
+                    dBh.data_ptr(), dCh.data_ptr(), scratch.data_ptr(), DTYPES[dtype], b, h,
+                    g, l, Q, x.shape[-1], B.shape[-1],
+                    *(st for t in ts for st in t.stride()[:3]),
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+        run()
+        want = ssd_chunk_op_bwd_ref(x, a, B, C, Q, dy, dst, dde)
+        got = (dx, da) + tuple(t.reshape(b, l, g, h // g, -1).sum(3) for t in (dBh, dCh))
+        scale = [w.float().abs().max() for w in want]
+        rows.append((f"{str(dtype)[6:]} l={l} {decay} (dx da dB dC)",
+                     tuple(o.float() / s for o, s in zip(got, scale)),
+                     tuple(w.float() / s for w, s in zip(want, scale)), run, lambda: None,
+                     [TOL[dtype]] * 4))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("set", choices=sorted(SETS))
@@ -239,16 +329,18 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60)
     print(f"{torch.cuda.get_device_name(0)} | {smi.stdout.strip()} | set {args.set}",
           flush=True)
-    make = {"k3": k3_cases, "k2": k2_cases, "k4": k4_cases}[args.set]
+    make = {"k3": k3_cases, "k2": k2_cases, "k4": k4_cases, "k4b": k4b_cases}[args.set]
     library_done = set()
     failed = False
     for name, lib in libs.items():
         gen = torch.Generator(device=dev).manual_seed(0)
-        for case, outs, refs, run, library in make(lib, cases, dev, gen):
+        for case, outs, refs, run, library, *tols in make(lib, cases, dev, gen):
             torch.cuda.synchronize()
             # each output against its own dtype's tolerance (bf16 2e-2, fp32 1e-4)
+            # unless the case names its own
             errs = [(o.float() - r.float()).abs().max().item() for o, r in zip(outs, refs)]
-            tols = [2e-2 if o.dtype == torch.bfloat16 else 1e-4 for o in outs]
+            tols = tols[0] if tols else [2e-2 if o.dtype == torch.bfloat16 else 1e-4
+                                         for o in outs]
             if name not in timing_only and not all(e <= t for e, t in zip(errs, tols)):
                 print(f"FAIL {name} {case}: max_abs_err {errs} > {tols}", flush=True)
                 failed = True

@@ -84,6 +84,7 @@
 
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
@@ -153,29 +154,6 @@ __device__ __forceinline__ void stage_keys(float* bt, float* xs, const T* Bb, co
           return w != nullptr ? xv * w[jj] : xv;
         },
         [&](int j, int p, float v) { xs[j * P + p] = v; });
-}
-
-// One warp writes cs[i] = sum(a[0 .. i]) for i < n, with a = 0 at or past
-// `valid`: each lane sums one contiguous segment, then a warp scan adds the
-// segments before it.
-__device__ __forceinline__ void warp_cumsum(float* cs, const float* a, long long ast, int n,
-                                            int valid, int lane) {
-  const int seg = (n + 31) / 32;
-  const int lo = min(lane * seg, n);
-  const int hi = min(lo + seg, n);
-  float run = 0.f;
-  for (int i = lo; i < hi; ++i) {
-    run += i < valid ? a[i * ast] : 0.f;
-    cs[i] = run;
-  }
-  float incl = run;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float up = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += up;
-  }
-  const float before = incl - run;
-  for (int i = lo; i < hi; ++i) cs[i] += before;
 }
 
 template <typename T>

@@ -7,12 +7,14 @@ nothing launched); any other device raises. Each keeps a plain integer ``launche
 one where the kernel is launched and nowhere else; K4 also counts its
 launches by route (``ssd_chunk.route_launches``). K3 carries a gradient
 through ``FlashAttentionFn`` (its backward is PyTorch ops, recomputing the
-probabilities); a launch of the others that autograd would record raises.
+probabilities), K4 through ``SSDChunkFn`` (its backward is K4b, a kernel);
+a launch that autograd would record raises.
 
   K1 ``relay_assemble``   <- repro/kernels/relay_copy/relay_copy.py
   K2 ``decode_attention`` <- repro/kernels/decode_attention/decode_attention.py
   K3 ``flash_attention``  <- repro/kernels/flash_attention/flash_attention.py
   K4 ``ssd_chunk``        <- repro/kernels/ssd_chunk/ssd_chunk.py
+  K4b ``ssd_chunk_bwd``   <- none: XLA differentiates repro/models/ssm.py:ssd_chunked
 """
 from typing import Dict
 
@@ -32,8 +34,13 @@ from .flash_attention import (
 )
 from .relay_copy import relay_assemble, relay_assemble_op, relay_assemble_ref
 from .ssd_chunk import (
+    SSDChunkFn,
     ssd_chunk,
+    ssd_chunk_bwd,
+    ssd_chunk_bwd_ref,
     ssd_chunk_op,
+    ssd_chunk_op_bwd,
+    ssd_chunk_op_bwd_ref,
     ssd_chunk_op_ref,
     ssd_chunk_ref,
     ssd_op,
@@ -45,6 +52,7 @@ KERNELS = {
     "decode_attention": decode_attention,
     "flash_attention": flash_attention,
     "ssd_chunk": ssd_chunk,
+    "ssd_chunk_bwd": ssd_chunk_bwd,
 }
 
 

@@ -48,6 +48,7 @@ _SIGNATURES = {
         [_P] * 4 + [_I, _P] + [_I] * 6 + [_L] * 10 + [_I, _F, _P]
     ),
     "ssd_chunk_launch": [_P] * 7 + [_I] * 9 + [_L] * 15 + [_P],
+    "ssd_chunk_bwd_launch": [_P] * 12 + [_I] * 8 + [_L] * 27 + [_P],
 }
 
 
@@ -143,9 +144,10 @@ def check(rc: int, kernel: str) -> None:
 def refuse_grad(kernel: str, *tensors, why: str) -> None:
     """Raise where autograd would record a launch. A kernel writes into a
     buffer the wrapper allocated, so autograd would lose the gradient of
-    its inputs without a word. K3 takes gradients through
-    ``FlashAttentionFn``, whose forward runs with grad mode off; the other
-    kernels have no gradient (``why`` says what waits for one)."""
+    its inputs without a word. K3 and K4 take gradients through
+    ``FlashAttentionFn`` and ``SSDChunkFn``, whose forwards run with grad
+    mode off; ``why`` says where a caller finds the gradient, or why the
+    kernel has none."""
     import torch
 
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):

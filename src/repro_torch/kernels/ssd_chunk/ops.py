@@ -3,7 +3,15 @@ counterpart of the JAX package's ``kernels/ssd_chunk/ops.py::ssd_op``, and
 what ``models.ssm.ssd_chunked`` computes. Beyond the JAX wrapper it takes
 g B/C groups that divide h (the kernel reads head h's group itself), a
 length that is not a multiple of the chunk (the kernel treats positions
-past it as the JAX model's zero padding), and an initial state."""
+past it as the JAX model's zero padding), and an initial state.
+
+``ssd_chunk_op`` goes through ``SSDChunkFn`` on every device wherever
+autograd records the call: the forward is K4 on the card and the plain
+version on the CPU; the backward is K4b (``csrc/ssd_chunk_bwd.cu``) on
+the card and its plain version, ``ssd_chunk_op_bwd_ref``, on the CPU.
+The inter-chunk scan around it is PyTorch ops, which autograd
+differentiates. The JAX package has no backward kernel: XLA
+differentiates ``ssd_chunked``."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -11,8 +19,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .ref import ssd_chunk_ref
-from .ssd_chunk import check_inputs, launch
+from .ref import ssd_chunk_bwd_f32, ssd_chunk_ref
+from .ssd_chunk import check_inputs, launch, launch_bwd
 
 
 def _check(x, a, B, C, chunk: int) -> None:
@@ -30,21 +38,7 @@ def _check(x, a, B, C, chunk: int) -> None:
     check_inputs("ssd_chunk_op", x, a, B, C)
 
 
-def ssd_chunk_op(
-    xbar: torch.Tensor,    # (b, l, h, p)
-    a: torch.Tensor,       # (b, l, h)
-    B: torch.Tensor,       # (b, l, g, n)
-    C: torch.Tensor,       # (b, l, g, n)
-    chunk: int,
-    *,
-    which: Optional[str] = None,
-):
-    """K4 over chunks of ``chunk`` positions. Returns (y_diag (b,l,h,p) in
-    xbar's dtype, states (b,h,nc,p,n) fp32, out_decay (b,h,nc,chunk) fp32),
-    nc = ceil(l / chunk); a ragged last chunk is zero-padded. ``which``
-    names a route (``ssd_chunk.route``'s default otherwise); the CPU runs
-    the plain version whatever it says."""
-    _check(xbar, a, B, C, chunk)
+def _forward(xbar, a, B, C, chunk: int, which: Optional[str]):
     # meta: the dry-run's route, shapes only; nothing is launched
     if xbar.device.type in ("cpu", "meta"):
         return ssd_chunk_op_ref(xbar, a, B, C, chunk)
@@ -64,12 +58,95 @@ def ssd_chunk_op(
     return y, states, decay
 
 
+def ssd_chunk_op_bwd(xbar, a, B, C, chunk: int, dy, dstates, ddecay):
+    """The gradient of ``ssd_chunk_op``'s (y_diag, states, out_decay)
+    with respect to (xbar, a, B, C): K4b on the card, the plain version
+    (``ssd_chunk_op_bwd_ref``) on the CPU and on meta. dx, dB and dC come
+    back in the inputs' dtype, da in fp32. K4b writes each head's dB and dC
+    as fp32 partials, summed here over the heads of a group."""
+    _check(xbar, a, B, C, chunk)
+    if xbar.device.type in ("cpu", "meta"):
+        return ssd_chunk_op_bwd_ref(xbar, a, B, C, chunk, dy, dstates, ddecay)
+    b, l, h, p = xbar.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = -(-l // chunk)
+    a = a.float()
+    dy = dy.to(xbar.dtype)
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    dstates, ddecay = dstates.float().contiguous(), ddecay.float().contiguous()
+    dx = torch.empty((b, l, h, p), dtype=xbar.dtype, device=xbar.device)
+    da = torch.empty((b, l, h), dtype=torch.float32, device=xbar.device)
+    dBh, dCh = (torch.empty((b, l, h, n), dtype=torch.float32, device=xbar.device)
+                for _ in range(2))
+    launch_bwd(xbar, a, B, C, dy, dstates, ddecay, dx, da, dBh, dCh,
+               (b, h, g, l, chunk, p, n),
+               tuple(s for t in (xbar, a, B, C, dy, dx, da, dBh, dCh)
+                     for s in t.stride()[:3]))
+    dB, dC = (t.reshape(b, l, g, h // g, n).sum(3).to(B.dtype) for t in (dBh, dCh))
+    return dx, da, dB, dC
+
+
+class SSDChunkFn(torch.autograd.Function):
+    """K4 with a gradient: the forward (grad mode off) saves xbar, a, B and
+    C; the backward is ``ssd_chunk_op_bwd`` (K4b on the card)."""
+
+    @staticmethod
+    def forward(ctx, xbar, a, B, C, chunk: int, which: Optional[str]):
+        out = _forward(xbar, a, B, C, chunk, which)
+        ctx.save_for_backward(xbar, a, B, C)
+        ctx.chunk = chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, dstates, ddecay):
+        xbar, a, B, C = ctx.saved_tensors
+        dx, da, dB, dC = ssd_chunk_op_bwd(xbar, a, B, C, ctx.chunk, dy, dstates, ddecay)
+        return dx, da.to(a.dtype), dB, dC, None, None
+
+
+def ssd_chunk_op(
+    xbar: torch.Tensor,    # (b, l, h, p)
+    a: torch.Tensor,       # (b, l, h)
+    B: torch.Tensor,       # (b, l, g, n)
+    C: torch.Tensor,       # (b, l, g, n)
+    chunk: int,
+    *,
+    which: Optional[str] = None,
+):
+    """K4 over chunks of ``chunk`` positions: through ``SSDChunkFn`` where
+    autograd records the call, straight to the kernel otherwise (a served
+    call keeps its host cost). Returns (y_diag (b,l,h,p) in xbar's dtype,
+    states (b,h,nc,p,n) fp32, out_decay (b,h,nc,chunk) fp32), nc =
+    ceil(l / chunk); a ragged last chunk is zero-padded. ``which`` names a
+    route (``ssd_chunk.route``'s default otherwise); the CPU runs the plain
+    version whatever it says."""
+    _check(xbar, a, B, C, chunk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xbar, a, B, C)):
+        return SSDChunkFn.apply(xbar, a, B, C, chunk, which)
+    return _forward(xbar, a, B, C, chunk, which)
+
+
 def _pad_to(t: torch.Tensor, length: int) -> torch.Tensor:
     """Zero-pad dim 1 up to ``length``."""
     extra = length - t.shape[1]
     if not extra:
         return t
     return F.pad(t, (0, 0) * (t.dim() - 2) + (0, extra))
+
+
+def _layout(b, h, g, n, nc, chunk, lp):
+    """(fuse, per_head): (b, lp, h, ...) -> (b*h, nc, chunk, ...), and B or
+    C (b, lp, g, n) -> (b, lp, h, n), each head given its group's."""
+
+    def fuse(t):
+        t = t.reshape(b, nc, chunk, h, -1).permute(0, 3, 1, 2, 4)
+        return t.reshape(b * h, nc, chunk, -1)
+
+    def per_head(t):
+        return t[:, :, :, None].expand(b, lp, g, h // g, n).reshape(b, lp, h, n)
+
+    return fuse, per_head
 
 
 def ssd_chunk_op_ref(xbar, a, B, C, chunk: int):
@@ -80,14 +157,7 @@ def ssd_chunk_op_ref(xbar, a, B, C, chunk: int):
     g, n = B.shape[2], B.shape[3]
     nc = -(-l // chunk)
     lp = nc * chunk
-
-    def fuse(t):                       # (b, lp, h, ...) -> (b*h, nc, Q, ...)
-        t = t.reshape(b, nc, chunk, h, -1).permute(0, 3, 1, 2, 4)
-        return t.reshape(b * h, nc, chunk, -1)
-
-    def per_head(t):                   # (b, lp, g, n) -> (b, lp, h, n)
-        return t[:, :, :, None].expand(b, lp, g, h // g, n).reshape(b, lp, h, n)
-
+    fuse, per_head = _layout(b, h, g, n, nc, chunk, lp)
     xc = fuse(_pad_to(xbar, lp))
     ac = fuse(_pad_to(a, lp)[..., None])[..., 0]
     Bc = fuse(per_head(_pad_to(B, lp)))
@@ -95,6 +165,32 @@ def ssd_chunk_op_ref(xbar, a, B, C, chunk: int):
     y, states, decay = ssd_chunk_ref(xc, ac, Bc, Cc)
     y = y.reshape(b, h, lp, p).transpose(1, 2)[:, :l].contiguous()
     return (y, states.reshape(b, h, nc, p, n), decay.reshape(b, h, nc, chunk))
+
+
+def ssd_chunk_op_bwd_ref(xbar, a, B, C, chunk: int, dy, dstates, ddecay):
+    """The plain version of K4b in the model's layout, on any device: pad
+    to a chunk multiple, fuse (b, h), broadcast B/C over each group's
+    heads, run ``ssd_chunk_bwd_ref``'s closed form in fp32 and sum a
+    group's dB and dC over its heads. dy is (b,l,h,p), dstates
+    (b,h,nc,p,n), ddecay (b,h,nc,chunk); returns (dx, da, dB, dC) with dx,
+    dB, dC in the inputs' dtype and da in fp32."""
+    b, l, h, p = xbar.shape
+    g, n = B.shape[2], B.shape[3]
+    nc = -(-l // chunk)
+    lp = nc * chunk
+    fuse, per_head = _layout(b, h, g, n, nc, chunk, lp)
+    dx, da, dB, dC = ssd_chunk_bwd_f32(
+        fuse(_pad_to(xbar, lp)), fuse(_pad_to(a, lp)[..., None])[..., 0],
+        fuse(per_head(_pad_to(B, lp))), fuse(per_head(_pad_to(C, lp))),
+        fuse(_pad_to(dy, lp)), dstates.reshape(b * h, nc, p, n),
+        ddecay.reshape(b * h, nc, chunk))
+
+    def unfuse(t):                     # (b*h, nc, Q, k) -> (b, l, h, k)
+        return t.reshape(b, h, lp, -1).transpose(1, 2)[:, :l]
+
+    dB, dC = (unfuse(t).reshape(b, l, g, h // g, n).sum(3).to(B.dtype) for t in (dB, dC))
+    return (unfuse(dx).to(xbar.dtype).contiguous(), unfuse(da[..., None])[..., 0].contiguous(),
+            dB, dC)
 
 
 def _ssd(intra, xbar, a, B, C, chunk, initial_state):

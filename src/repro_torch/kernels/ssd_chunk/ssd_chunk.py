@@ -11,7 +11,12 @@ products, TMA loads; each head computes its own C B^T in registers) for
 the bf16 shapes ``tensor_cores_take`` accepts, and the CUDA-core kernel
 for fp32 and every other shape. A call may name either; a route that
 cannot take a shape raises. Neither hands a call to the other or to the
-plain version."""
+plain version.
+
+K4b (``csrc/ssd_chunk_bwd.cu``, ``launch_bwd``) is K4's gradient, on the
+CUDA cores for both dtypes and every shape the CUDA-core K4 takes;
+``ssd_chunk_bwd`` maps this layout onto ``ops.ssd_chunk_op_bwd``, its
+one launching wrapper. A launch counts in ``ssd_chunk_bwd.launches``."""
 from __future__ import annotations
 
 import math
@@ -64,6 +69,18 @@ def route(dtype: torch.dtype, Q: int, P: int, N: int, which: Optional[str] = Non
     return which
 
 
+def check_cuda_cores(name: str, P: int, N: int) -> None:
+    """The shapes the CUDA-core kernels (K4's and K4b) take."""
+    if N % 4 or not 4 <= N <= MAX_N or not 1 <= P <= MAX_P:
+        raise ValueError(
+            f"{name}: the CUDA-core kernel takes N % 4 == 0, N <= {MAX_N} "
+            f"and P <= {MAX_P}, got N={N} P={P}"
+        )
+    if math.ceil(P / (THREADS // N)) > MAX_ACC:
+        raise ValueError(f"{name}: P={P} with N={N} needs more than "
+                         f"{MAX_ACC} state accumulators per thread")
+
+
 def check_inputs(name: str, x, a, B, C) -> None:
     """Device / dtype / contiguity checks shared by both layouts."""
     tensors = (x, a, B, C)
@@ -91,20 +108,13 @@ def launch(x, a, B, C, y, states, decay, dims: Sequence[int],
     C (b, t, g), y (b, t, h). ``a`` is fp32; ``states`` (batch, H, nc, P, N)
     and ``decay`` (batch, H, nc, Q) are contiguous fp32."""
     build.refuse_grad("ssd_chunk", x, a, B, C,
-                      why="SSM training on the card waits for a backward of K4")
+                      why="call ssd_chunk_op, whose SSDChunkFn carries it")
     batch, H, G, L, Q, P, N = dims
     if G < 1 or H % G:
         raise ValueError(f"ssd_chunk: need H % G == 0, got H={H} G={G}")
     which = route(x.dtype, Q, P, N, which)
     if which == "cuda_cores":
-        if N % 4 or not 4 <= N <= MAX_N or not 1 <= P <= MAX_P:
-            raise ValueError(
-                f"ssd_chunk: the CUDA-core kernel takes N % 4 == 0, N <= {MAX_N} "
-                f"and P <= {MAX_P}, got N={N} P={P}"
-            )
-        if math.ceil(P / (THREADS // N)) > MAX_ACC:
-            raise ValueError(f"ssd_chunk: P={P} with N={N} needs more than "
-                             f"{MAX_ACC} state accumulators per thread")
+        check_cuda_cores("ssd_chunk", P, N)
     if a.dtype != torch.float32 or not (states.is_contiguous()
                                         and decay.is_contiguous()):
         raise ValueError("ssd_chunk: a must be fp32, states/decay contiguous")
@@ -119,6 +129,54 @@ def launch(x, a, B, C, y, states, decay, dims: Sequence[int],
     build.check(rc, f"ssd_chunk ({which})")
     ssd_chunk.launches += 1
     ssd_chunk.route_launches[which] += 1
+
+
+def launch_bwd(x, a, B, C, dy, dstates, ddecay, dx, da, dB, dC,
+               dims: Sequence[int], strides: Sequence[int]) -> None:
+    """Launch K4b. dims = (batch, H, G, L, Q, P, N); strides in elements,
+    (b, t, h or g) of x, a, B, C, dy, dx, da, dB, dC in that order (27).
+    x, B, C, dy and dx share a dtype; a, da, dstates (batch, H, nc, P, N),
+    ddecay (batch, H, nc, Q) and the per-head partials dB, dC (batch, L, H,
+    N) are fp32. The last dim of x, B, C, dy, dx, dB and dC is contiguous,
+    dstates and ddecay are contiguous."""
+    batch, H, G, L, Q, P, N = dims
+    if G < 1 or H % G:
+        raise ValueError(f"ssd_chunk_bwd: need H % G == 0, got H={H} G={G}")
+    if not 1 <= Q <= TC_MAX_Q:
+        raise ValueError(f"ssd_chunk_bwd: the kernel takes chunks of 1 to {TC_MAX_Q}, "
+                         f"got {Q}")
+    check_cuda_cores("ssd_chunk_bwd", P, N)
+    tensors = (x, a, B, C, dy, dstates, ddecay, dx, da, dB, dC)
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("ssd_chunk_bwd: every tensor must be on one device")
+    if x.dtype not in DTYPES or any(t.dtype != x.dtype for t in (B, C, dy, dx)):
+        raise TypeError(f"ssd_chunk_bwd: x, B, C, dy, dx must share a dtype in "
+                        f"{list(DTYPES)}")
+    if any(t.dtype != torch.float32 for t in (a, dstates, ddecay, da, dB, dC)):
+        raise TypeError("ssd_chunk_bwd: a, dstates, ddecay, da, dB, dC must be fp32")
+    nc = -(-L // Q)
+    if (dstates.shape != (batch, H, nc, P, N) or ddecay.shape != (batch, H, nc, Q)
+            or not (dstates.is_contiguous() and ddecay.is_contiguous())):
+        raise ValueError(f"ssd_chunk_bwd: dstates {tuple(dstates.shape)} and ddecay "
+                         f"{tuple(ddecay.shape)} must be contiguous "
+                         f"{(batch, H, nc, P, N)} and {(batch, H, nc, Q)}")
+    if any(t.stride(-1) != 1 for t in (x, B, C, dy, dx, dB, dC)):
+        raise ValueError("ssd_chunk_bwd: the last dim of x, B, C, dy, dx, dB, dC "
+                         "must be contiguous")
+    if batch * H * L == 0:
+        return
+    # per position of each (batch, head, chunk): the row and column sums of
+    # dM o M and the state term u, which the kernel's last pass turns into da
+    scratch = torch.empty((3, batch * H * nc * Q), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        rc = build.library().ssd_chunk_bwd_launch(
+            x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+            dstates.data_ptr(), ddecay.data_ptr(), dx.data_ptr(), da.data_ptr(),
+            dB.data_ptr(), dC.data_ptr(), scratch.data_ptr(), DTYPES[x.dtype],
+            batch, H, G, L, Q, P, N, *strides, build.stream_handle(x),
+        )
+    build.check(rc, "ssd_chunk_bwd")
+    ssd_chunk_bwd.launches += 1
 
 
 def ssd_chunk(
@@ -157,5 +215,34 @@ def ssd_chunk(
     return y, states, decay
 
 
+def ssd_chunk_bwd(
+    xbar: torch.Tensor,      # (BH, nc, Q, P)
+    a: torch.Tensor,         # (BH, nc, Q)
+    B: torch.Tensor,         # (BH, nc, Q, N)
+    C: torch.Tensor,         # (BH, nc, Q, N)
+    dy: torch.Tensor,        # (BH, nc, Q, P)
+    dstates: torch.Tensor,   # (BH, nc, P, N)
+    ddecay: torch.Tensor,    # (BH, nc, Q)
+):
+    """K4b in the fused layout: the gradient of ``ssd_chunk``'s three
+    outputs with respect to (xbar, a, B, C). Returns (dx, da, dB, dC): dx,
+    dB and dC in xbar's dtype, da fp32. A reshape onto ``ssd_chunk_op_bwd``
+    (one head of one group, l = nc * Q), so the CPU runs the plain version."""
+    from .ops import ssd_chunk_op_bwd   # ops imports this module
+
+    BH, nc, Q, P = xbar.shape
+    N = B.shape[-1]
+    if (a.shape != (BH, nc, Q) or B.shape != (BH, nc, Q, N) or dy.shape != xbar.shape
+            or dstates.shape != (BH, nc, P, N) or ddecay.shape != (BH, nc, Q)):
+        raise ValueError("ssd_chunk_bwd: the shapes of xbar, a, B, C, dy, dstates and "
+                         "ddecay do not agree")
+    x, B, C, dy = (t.reshape(BH, nc * Q, 1, -1) for t in (xbar, B, C, dy))
+    dx, da, dB, dC = ssd_chunk_op_bwd(x, a.reshape(BH, nc * Q, 1), B, C, Q, dy,
+                                      dstates.reshape(BH, 1, nc, P, N),
+                                      ddecay.reshape(BH, 1, nc, Q))
+    return (dx.reshape(xbar.shape), da.reshape(a.shape), dB.reshape(BH, nc, Q, N),
+            dC.reshape(BH, nc, Q, N))
+
 ssd_chunk.launches = 0
 ssd_chunk.route_launches = dict.fromkeys(ROUTES, 0)   # launches by route
+ssd_chunk_bwd.launches = 0

@@ -1,8 +1,9 @@
 """The port on an sm_90 card: the CUDA kernels against their plain
 versions, the data plane bit-exact through real CUDA copies, a reduced
 model on the card against the same model on the CPU, and gradients: K3's
-through FlashAttentionFn and a 2-layer model's against the plain path's,
-and the kernels without a gradient refusing one.
+through FlashAttentionFn, K4's through SSDChunkFn (K4b), 2-layer dense, 2-layer
+Mamba2 and one-period hybrid models' against the plain path's, and the
+kernels without a gradient refusing one.
 
 Every test here needs the card (marker ``cuda``) and skips elsewhere; the
 file imports neither JAX nor the JAX package, so it runs on a machine
@@ -38,7 +39,11 @@ from repro_torch.kernels import (
     relay_assemble_op,
     relay_assemble_ref,
     ssd_chunk,
+    ssd_chunk_bwd,
+    ssd_chunk_bwd_ref,
     ssd_chunk_op,
+    ssd_chunk_op_bwd,
+    ssd_chunk_op_bwd_ref,
     ssd_chunk_op_ref,
     ssd_chunk_ref,
 )
@@ -655,8 +660,10 @@ def test_model_grads_on_the_card_match_plain_path(dev, dtype):
 
 
 def test_kernels_without_a_gradient_refuse_one_on_the_card(dev):
-    """K2 and K4 (and K3 called outside FlashAttentionFn) raise where
-    autograd would record their launch, and run under no_grad."""
+    """K2, and K3 and K4 called outside FlashAttentionFn and SSDChunkFn
+    (the fused-layout ``ssd_chunk``), raise where autograd would record
+    their launch, and run under no_grad; ``ssd_chunk_op`` carries K4's
+    gradient through K4b."""
     q = torch.randn(1, 1, 8, 64, device=dev, requires_grad=True)
     kv = torch.randn(1, 32, 2, 64, device=dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -664,8 +671,16 @@ def test_kernels_without_a_gradient_refuse_one_on_the_card(dev):
     x = torch.randn(1, 64, 4, 32, device=dev, requires_grad=True)
     a = -torch.rand(1, 64, 4, device=dev)
     Bm = torch.randn(1, 64, 1, 16, device=dev)
+    before = ssd_chunk_bwd.launches
+    y, _, _ = ssd_chunk_op(x, a, Bm, Bm, 32)
+    (dx,) = torch.autograd.grad(y.square().sum(), x)
+    assert ssd_chunk_bwd.launches == before + 1
+    assert torch.isfinite(dx).all() and dx.abs().max() > 0
+    xf = torch.randn(4, 2, 32, 32, device=dev, requires_grad=True)
+    af = -torch.rand(4, 2, 32, device=dev)
+    Bf = torch.randn(4, 2, 32, 16, device=dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ssd_chunk_op(x, a, Bm, Bm, 32)
+        ssd_chunk(xf, af, Bf, Bf)
     qh = torch.randn(1, 8, 64, 64, device=dev, requires_grad=True)
     kh = torch.randn(1, 2, 64, 64, device=dev)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -673,8 +688,188 @@ def test_kernels_without_a_gradient_refuse_one_on_the_card(dev):
     with torch.no_grad():
         decode_attention_op(q, kv, kv, 16)
         ssd_chunk_op(x, a, Bm, Bm, 32)
+        ssd_chunk(xf, af, Bf, Bf)
         flash_attention(qh, kh, kh)
 
+
+def _ssd_grads_match_plain(dev, dtype, b, l, h, p, n, groups, chunk, decay, which):
+    """K4 forward on route ``which`` (the default when None), then K4b,
+    through SSDChunkFn: dx, da, dB and dC against ``ssd_chunk_op_bwd_ref``
+    on the same inputs and cotangents, each relative to that gradient's
+    largest magnitude, at x's dtype's tolerance; one K4b launch."""
+    x, a, B, C = _ssd_inputs(dev, dtype, b, l, h, p, n, groups, decay)
+    g = torch.Generator(device=dev).manual_seed(3)
+    with torch.no_grad():
+        shapes = [o.shape for o in ssd_chunk_op_ref(x, a, B, C, chunk)]
+    dy = torch.randn(shapes[0], device=dev, generator=g).to(dtype)
+    dst, dde = (torch.randn(s, device=dev, generator=g) for s in shapes[1:])
+    leaves = [t.clone().requires_grad_(True) for t in (x, a, B, C)]
+    before = ssd_chunk_bwd.launches
+    got = torch.autograd.grad(ssd_chunk_op(*leaves, chunk, which=which), leaves, (dy, dst, dde))
+    assert ssd_chunk_bwd.launches == before + 1
+    want = ssd_chunk_op_bwd_ref(x, a, B, C, chunk, dy, dst, dde)
+    for gt, w in zip(got, want):
+        assert gt.dtype == w.dtype and gt.shape == w.shape and torch.isfinite(gt).all()
+        assert _rel_to_scale(gt, w) <= TOL[dtype]["atol"]
+
+
+@pytest.mark.parametrize("which", ["cuda_cores", None])
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,p,n,groups,chunk", [
+    (8, 512, 32, 64, 128, 1, 256),   # Mamba2-370m's train shape
+    (1, 384, 32, 64, 128, 2, 256),   # ragged last chunk, two groups
+    (1, 300, 32, 64, 128, 1, 256),   # ragged last chunk
+    (2, 100, 4, 32, 16, 2, 32),      # reduced widths, chunk 32
+    (1, 120, 4, 20, 12, 1, 50),      # a chunk that is no multiple of 32
+    (1, 300, 2, 32, 256, 1, 128),    # N = 256 (the wide instance)
+])
+def test_ssd_chunk_bwd_matches_plain(dev, b, l, h, p, n, groups, chunk, dtype, decay, which):
+    _ssd_grads_match_plain(dev, dtype, b, l, h, p, n, groups, chunk, decay, which)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_chunk_bwd_gives_the_same_bits_twice(dev, dtype):
+    """No atomics: the same inputs give the same bits on every call."""
+    x, a, B, C = _ssd_inputs(dev, dtype, 8, 512, 32, 64, 128, 1, "slow")
+    with torch.no_grad():
+        y, st, de = ssd_chunk_op(x, a, B, C, 256)
+    g = torch.Generator(device=dev).manual_seed(4)
+    cot = (torch.randn(y.shape, device=dev, generator=g).to(dtype),
+           torch.randn(st.shape, device=dev, generator=g),
+           torch.randn(de.shape, device=dev, generator=g))
+    first = ssd_chunk_op_bwd(x, a, B, C, 256, *cot)
+    second = ssd_chunk_op_bwd(x, a, B, C, 256, *cot)
+    for u, v in zip(first, second):
+        assert torch.equal(u.view(-1).view(torch.uint8), v.view(-1).view(torch.uint8))
+
+
+def test_ssd_chunk_bwd_fused_layout_matches_plain(dev):
+    """``ssd_chunk_bwd`` in the (BH, nc, Q, .) layout against
+    ``ssd_chunk_bwd_ref``, fp32."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    x, dy = (torch.randn(6, 2, 64, 32, device=dev, generator=g) for _ in range(2))
+    a = -torch.rand(6, 2, 64, device=dev, generator=g) * 0.2
+    B, C = (torch.randn(6, 2, 64, 16, device=dev, generator=g) for _ in range(2))
+    dst = torch.randn(6, 2, 32, 16, device=dev, generator=g)
+    dde = torch.randn(6, 2, 64, device=dev, generator=g)
+    before = ssd_chunk_bwd.launches
+    got = ssd_chunk_bwd(x, a, B, C, dy, dst, dde)
+    assert ssd_chunk_bwd.launches == before + 1
+    for gt, w in zip(got, ssd_chunk_bwd_ref(x, a, B, C, dy, dst, dde)):
+        assert gt.dtype == w.dtype
+        assert _rel_to_scale(gt, w) <= TOL[torch.float32]["atol"]
+
+
+@pytest.mark.parametrize("p,n,chunk", [(32, 6, 32), (129, 16, 32), (64, 256, 32),
+                                       (32, 16, 2048)])
+def test_ssd_chunk_bwd_refuses_what_it_cannot_take(dev, p, n, chunk):
+    """N % 4, P > 128, a thread's share of a state column past 32, a chunk
+    past 1024: ValueError before anything is launched."""
+    x = torch.randn(1, 64, 2, p, device=dev)
+    a = -torch.rand(1, 64, 2, device=dev)
+    B = torch.randn(1, 64, 1, n, device=dev)
+    nc = -(-64 // chunk)
+    before = ssd_chunk_bwd.launches
+    with pytest.raises(ValueError):
+        ssd_chunk_op_bwd(x, a, B, B, chunk, x, torch.zeros(1, 2, nc, p, n, device=dev),
+                         torch.zeros(1, 2, nc, chunk, device=dev))
+    assert ssd_chunk_bwd.launches == before
+
+
+# jamba cut to one period without experts: one attention and seven SSM layers
+HYBRID_PERIOD = dict(n_experts=0, n_layers=8)
+
+
+def _ssm_model(dev, name, overrides, dtype):
+    """(cfg, params, batch, SSM layers) of a reduced model on the card."""
+    cfg = dataclasses.replace(get_config(name).reduced(), dtype=dtype, **overrides)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 101))).long().to(dev)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    plan = cfg.layer_plan()
+    n_ssm = cfg.n_layers // len(plan) * sum(m == "ssm" for m, _ in plan)
+    return cfg, params, batch, n_ssm
+
+
+def _model_grads(params, batch, cfg):
+    live = tree_map(lambda t: t.detach().clone().requires_grad_(True), params)
+    loss, _ = loss_fn(live, batch, cfg)
+    loss.backward()
+    return loss.detach(), [t.grad for t in tree_leaves(live)]
+
+
+@pytest.mark.parametrize("name,overrides,dtype", [
+    ("mamba2-370m", {}, torch.float32),
+    ("mamba2-370m", {}, torch.bfloat16),
+    ("jamba-1.5-large-398b", HYBRID_PERIOD, torch.float32),
+])
+def test_ssm_model_grads_on_the_card_match_plain_path(dev, name, overrides, dtype):
+    """loss.backward() of a reduced Mamba2 and of one jamba period on the
+    card (K4 forward, K4b; K3 and its gradient in jamba's attention layer)
+    gives every leaf a finite gradient within 2e-2 (bf16) / 1e-4 (fp32) of
+    the plain path's on the card (both plain versions of K4, K3's plain
+    version), relative to the leaf's largest magnitude. The bf16 hybrid is
+    held call by call instead (the next test): eight random bf16 layers
+    carry single roundings past 2e-2 of a leaf."""
+    import importlib
+    from unittest import mock
+
+    import repro_torch.models.attention as attention
+
+    ops = importlib.import_module("repro_torch.kernels.ssd_chunk.ops")
+    cfg, params, batch, n_ssm = _ssm_model(dev, name, overrides, dtype)
+    before = ssd_chunk_bwd.launches
+    loss, got = _model_grads(params, batch, cfg)
+    assert ssd_chunk_bwd.launches - before == n_ssm
+    with mock.patch.multiple(
+            ops, _forward=lambda x, a, B, C, chunk, which: ssd_chunk_op_ref(x, a, B, C, chunk),
+            ssd_chunk_op_bwd=ssd_chunk_op_bwd_ref), \
+            mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref):
+        plain_loss, want = _model_grads(params, batch, cfg)
+    assert torch.isfinite(loss)
+    for a, b in zip(got, want):
+        assert a is not None and torch.isfinite(a).all() and a.abs().max() > 0
+        assert _rel_to_scale(a, b) <= TOL[dtype]["atol"]
+
+
+def test_hybrid_bf16_grads_hold_every_k4_call_to_its_plain_version(dev):
+    """loss.backward() of one jamba period in bf16 on the card: every K4
+    forward and K4b backward held to its plain version on the same inputs
+    and cotangents (2e-2 of each output's or gradient's max), two forwards
+    (remat) and one backward a SSM layer, and every leaf's gradient finite
+    and non-zero."""
+    from unittest import mock
+
+    from repro_torch.kernels import SSDChunkFn
+
+    cfg, params, batch, n_ssm = _ssm_model(dev, "jamba-1.5-large-398b", HYBRID_PERIOD,
+                                           torch.bfloat16)
+    fwd, bwd = SSDChunkFn.forward, SSDChunkFn.backward
+    errs = {"forward": [], "backward": []}
+
+    def forward(ctx, xbar, a, B, C, chunk, which):
+        out = fwd(ctx, xbar, a, B, C, chunk, which)
+        ref = ssd_chunk_op_ref(xbar, a, B, C, chunk)
+        errs["forward"].append(max(_rel_to_scale(o, r) for o, r in zip(out, ref)))
+        ctx.probe_inputs = (xbar, a, B, C)
+        return out
+
+    def backward(ctx, dy, dstates, ddecay):
+        grads = bwd(ctx, dy, dstates, ddecay)
+        want = ssd_chunk_op_bwd_ref(*ctx.probe_inputs, ctx.chunk, dy, dstates, ddecay)
+        errs["backward"].append(max(_rel_to_scale(g, w) for g, w in zip(grads[:4], want)))
+        return grads
+
+    with mock.patch.object(SSDChunkFn, "forward", staticmethod(forward)), \
+            mock.patch.object(SSDChunkFn, "backward", staticmethod(backward)):
+        loss, got = _model_grads(params, batch, cfg)
+    assert torch.isfinite(loss)
+    assert len(errs["forward"]) == 2 * n_ssm and len(errs["backward"]) == n_ssm  # remat
+    assert max(errs["forward"] + errs["backward"]) <= TOL[torch.bfloat16]["atol"]
+    for g in got:
+        assert g is not None and torch.isfinite(g).all() and g.abs().max() > 0
 
 
 @pytest.mark.parametrize("use_kernel", [True, False])

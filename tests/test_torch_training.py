@@ -5,8 +5,10 @@ sizes on the CPU.
 
 On the CPU ``flash_attention_op``'s forward is its plain version and its
 backward the explicit ``flash_attention_bwd`` (the same function the card
-runs after K3); the card test (tests/test_torch_cuda.py) holds K3's
-gradients there to the plain path's.
+runs after K3), and ``ssd_chunk_op`` goes through ``SSDChunkFn`` with the
+plain version of K4b (``ssd_chunk_op_bwd_ref``) as its backward; the card
+tests (tests/test_torch_cuda.py) hold K3's and K4b's gradients there to the
+plain path's.
 
 Tolerances, all fp32: a loss within 1e-5 relative; a gradient leaf within
 1e-4 of its largest magnitude (the sums of a backward pass run in another
@@ -109,14 +111,25 @@ def test_cross_entropy_of_an_empty_mask_is_zero():
     assert float(cross_entropy_loss(logits, labels, torch.zeros(2, 3))) == 0.0
 
 
+# jamba cut to one period without experts (one attention and seven SSM
+# layers), as tests/test_torch_ssm.py serves it: K3's and K4's gradients in
+# one model. Its SSM leaves are ill-conditioned in fp32: against a float64
+# run of the JAX model, JAX's fp32 gradients lie up to 1.4e-4 of a leaf's
+# max away and the port's 1.6e-4 (the port's autograd through K4's plain
+# forward alike), so the two fp32 runs are held to each other at 4e-4.
+HYBRID_PERIOD = {"jamba-1.5-large-398b": dict(n_experts=0, n_layers=8)}
+HYBRID_GRAD_TOL = 4e-4
+
+
 @pytest.mark.parametrize("name,frontend", [
     ("tinyllama-1.1b", False),        # dense GQA
     ("olmoe-1b-7b", False),           # MoE: the aux term
     ("mamba2-370m", False),           # SSM
     ("llama-3.2-vision-90b", True),   # cross-attention to a frontend
+    ("jamba-1.5-large-398b", False),  # hybrid: attention and SSM layers
 ])
 def test_loss_and_grads_match_jax(name, frontend):
-    jcfg, tcfg, jp, tp = _pair(name)
+    jcfg, tcfg, jp, tp = _pair(name, **HYBRID_PERIOD.get(name, {}))
     batch = _batch(tcfg, 2, 16, frontend=frontend)
     (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True),
                                     static_argnums=2)(
@@ -130,9 +143,10 @@ def test_loss_and_grads_match_jax(name, frontend):
         assert met["aux"].item() > 0
     jleaves = jax.tree.leaves(jgrads)
     assert len(jleaves) == len(grads)
+    tol = HYBRID_GRAD_TOL if name in HYBRID_PERIOD else GRAD_TOL
     for g, jg in zip(grads, jleaves):
         assert tuple(g.shape) == jg.shape
-        _close_to_scale(_np(g), np.asarray(jg), GRAD_TOL)
+        _close_to_scale(_np(g), np.asarray(jg), tol)
 
 
 def test_loss_and_grads_through_inputs_embeds_match_jax():

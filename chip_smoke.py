@@ -26,8 +26,10 @@ Phases, one result line each:
              160 too (the cp.async path);
              K3 also through the model-layout wrapper, at a 2048-token
              prompt (its share of the operations bound) and at the train
-             phase's 8 x 512 tokens with its backward (PyTorch ops) held
-             to autograd through the plain version; K3 and K4 with the
+             phase's 8 x 512 tokens with its backward, K3b, held to
+             autograd through the plain version and timed beside
+             flash_attention_bwd (the PyTorch-ops backward it replaced),
+             SDPA's backward and its bound; K3 and K4 with the
              HGMMA count `cuobjdump -sass` finds in their bf16 kernels; K1's
              relay_assemble_op equal to K1 bit for bit (one launch a call),
              and K1 against index_select at OLMoE's 4 GiB leaf in 5
@@ -44,7 +46,15 @@ Phases, one result line each:
              fp32, held to its plain version on the same inputs and
              cotangents, the same bits on a second call, and timed beside
              its bound, the plain version and autograd through the plain
-             forward
+             forward; K3b, K3's gradient, after K3's forward with its row
+             log-sum-exp, at the train shape, at rows that see no key
+             (bf16 and fp32), at launch.train's fp32 shape and gemma's
+             heads of 256 (both timed; the CUDA cores), and at windowed,
+             ragged, later-chunk, not-causal, D = 192, D = 80 and
+             negative-offset shapes, each held to autograd through the
+             plain version, the same bits on a second call, the served
+             forward (no lse) bit-equal, its loop bounds' Python mirror
+             against the mask, and the HGMMA count of its bf16 kernels
   transfer   multipath_device_put / _get of a 1 GiB pinned bf16 tensor, bit-exact,
              over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
   serve      the dense path: TinyLlama-1.1B at full width in bf16 (random weights
@@ -112,10 +122,10 @@ Phases, one result line each:
              AdamW state (~11 GB) saved and restored through the multipath
              engine (K1 on every leaf of 12 MB or more) bit-exact, then 4
              steps with 2 microbatches from the restored state. K3 runs
-             forward and under remat; its gradient is FlashAttentionFn's
-             backward. Step 1's gradient, computed apart, probes every K3
-             forward and backward against the plain version on the same
-             inputs, and its loss against the plain path's
+             forward and under remat; its gradient is K3b (264 launches).
+             Step 1's gradient, computed apart, probes every K3 forward
+             and K3b call against the plain version on the same inputs,
+             and its loss against the plain path's
   train-ssm  Mamba2 trained: mamba2-370m at full width and depth in bf16
              through repro_torch.training.train on 8 x 512 synthetic tokens,
              remat on, AdamW: 4 steps, then 4 more from the returned state.
@@ -137,8 +147,10 @@ Phases, one result line each:
   launch-train  the training entry point, repro_torch.launch.train.main
              --no-reduced --steps 4: TinyLlama-1.1B at full width in fp32,
              batch 8 x 128, remat, on a one-rank NCCL mesh (K3's fp32
-             kernel); every loss finite, step 0's loss within 1e-3 of
-             loss_fn through the plain path on the same weights and batch;
+             kernel, its gradient K3b on the CUDA cores); every loss
+             finite, step 0's loss within 1e-3 of loss_fn through the
+             plain path on the same weights and batch, step 0's K3 and K3b
+             calls held to their plain versions on the same inputs;
              then the same for mamba2-370m (K4's CUDA-core kernel and K4b
              in fp32, through the mixer's shard_map), its step 0's K4 and
              K4b calls held to their plain versions on the same inputs
@@ -155,9 +167,10 @@ serve-gemma:launch-serve; the train phase's steps and checkpoint are path
 train, the train-ssm phase's 8 steps path train-ssm; phase dist's OLMoE run
 and its train step, each counted apart and summed, are path dist, its
 Mamba2 run path dist-mamba2; the entry points' runs are paths launch-serve,
-launch-train and launch-train:mamba2-370m). The script ends with the kernels JSON line
-(launches summed over the paths, and per path), the card's name and power
-limit, and
+launch-train and launch-train:mamba2-370m). K3b must launch on train,
+dist and launch-train and on no other path. The script ends with the
+kernels JSON line (launches summed over the paths, and per path), the
+card's name and power limit, and
 {"ok": true, "device": {...}}. It needs a CUDA card and the repository's
 src/ beside it; it imports nothing of JAX or of the JAX package.
 Float32 comparisons run with TF32 off (matmul and cuDNN).
@@ -244,6 +257,30 @@ def time_ms(fn, reps: int):
 def timed(prefix: str, fn, reps: int) -> dict:
     device, eager = time_ms(fn, reps)
     return {prefix: device, prefix.replace("ms", "eager_ms"): eager}
+
+
+def sdpa_backward_ms(q, k, v, do, reps: int, causal: bool = True) -> dict:
+    """SDPA's backward on q, k, v, dO in the model's layout (B, S, heads, D):
+    ``library_ms``, device ms of its forward and backward replayed in one
+    CUDA graph less its forward alone (autograd runs a backward on its
+    forward's stream, so the backward cannot be captured by itself), both
+    readings beside it, and ``library_eager_ms``, the backward alone issued
+    eagerly (CUDA events; autograd's host cost included)."""
+    import torch.nn.functional as F
+
+    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+    dos = do.transpose(1, 2)
+
+    def forward():
+        return F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
+
+    both, _ = time_ms(lambda: torch.autograd.grad(forward(), (qs, ks, vs), dos), reps)
+    fwd, _ = time_ms(forward, reps)
+    out = forward()
+    eager = _event_ms(lambda: [torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True)
+                               for _ in range(reps)], reps)
+    return {"library_ms": both - fwd, "library_fwd_bwd_ms": both, "library_fwd_ms": fwd,
+            "library_eager_ms": eager}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -532,15 +569,16 @@ def _flash_case(dev, gen):
 def _flash_train(dev, gen, B=8, H=32, G=4, D=64, S=512):
     """K3 at the train phase's shape (TinyLlama's heads, 8 sequences of 512,
     bf16, causal) through FlashAttentionFn: the forward held to the plain
-    version and timed as at the served shapes; the backward
-    (``flash_attention_bwd``, PyTorch ops, not a kernel) held to autograd
-    through the plain version on the same inputs and dO, relative to each
-    gradient's largest magnitude, and timed beside that autograd backward,
-    SDPA's backward and its bound. Backward times are CUDA events around 10
-    eager calls (each call is milliseconds of device work)."""
-    import torch.nn.functional as F
-    from repro_torch.kernels import flash_attention_bwd, flash_attention_op, \
-        flash_attention_op_ref
+    version and timed as at the served shapes, its lse to the plain
+    helper's; the backward, K3b, held to autograd through the plain version
+    on the same inputs and dO, relative to each gradient's largest
+    magnitude, and timed: device ms from a CUDA-graph replay of 20 calls
+    and eager ms, as SDPA's backward (``sdpa_backward_ms``), beside
+    ``flash_attention_bwd`` (its plain version: the PyTorch-ops backward
+    that K3b replaced) and autograd through the plain forward (CUDA events
+    around 10 eager calls each), and its bound."""
+    from repro_torch.kernels import flash_attention_bwd, flash_attention_lse_ref, \
+        flash_attention_op, flash_attention_op_bwd, flash_attention_op_ref
 
     q, do = (torch.randn(B, S, H, D, device=dev, generator=gen).to(torch.bfloat16)
              for _ in range(2))
@@ -549,45 +587,184 @@ def _flash_train(dev, gen, B=8, H=32, G=4, D=64, S=512):
     forward = _flash_served(dev, gen, B, H, G, D, S)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = flash_attention_op(*leaves)
+    lse = out.grad_fn.saved_tensors[4]
+    lse_err = max_err(lse, flash_attention_lse_ref(q.transpose(1, 2), k.transpose(1, 2)))
     got = torch.autograd.grad(out, leaves, do)
     plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
     ref = flash_attention_op_ref(*plain)
     want = torch.autograd.grad(ref, plain, do, retain_graph=True)
     fwd_err = max_err(out, ref)
+    bwd_abs = max(max_err(a, b) for a, b in zip(got, want))
     bwd_err = max(max_err(a, b) / b.float().abs().max().item() for a, b in zip(got, want))
     check(fwd_err <= TOL[torch.bfloat16] and bwd_err <= TOL[torch.bfloat16]
-          and all(torch.isfinite(g).all().item() for g in got),
-          f"K3 at the train shape: forward {fwd_err:.3e}, backward {bwd_err:.3e} of max")
+          and lse_err <= 1e-4 and all(torch.isfinite(g).all().item() for g in got),
+          f"K3 at the train shape: forward {fwd_err:.3e}, lse {lse_err:.3e}, K3b "
+          f"{bwd_err:.3e} of max")
     o = out.detach()
-    qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
-    dos = do.transpose(1, 2)
 
     def eager_ms(fn, reps=10):
         fn()
         return _event_ms(lambda: [fn() for _ in range(reps)], reps)
 
-    # recompute s, dV, dP, dQ, dK: five products, half the (S, S) entries
+    # the gradient's own work: recompute s, then dV, dP, dQ, dK: five
+    # products over the causal half (K3b runs seven: S and dP in both passes)
     flops = 5 * 2 * B * H * S * (S + 1) // 2 * D
-    moved = nbytes(q, k, v, o, do, q, k, v)       # read q k v o dO, write dq dk dv
+    moved = nbytes(q, k, v, o, do, lse, q, k, v)  # read q k v o dO lse, write dq dk dv
     backward = {
         "shape": f"q,dO ({B}, {S}, {H}, {D}) k,v ({B}, {S}, {G}, {D}) bf16 causal",
-        "max_abs_err_rel": bwd_err,
-        "ms": eager_ms(lambda: flash_attention_bwd(q, k, v, o, do)),
-        "plain_ms": eager_ms(lambda: torch.autograd.grad(ref, plain, do, retain_graph=True)),
-        "library_ms": eager_ms(lambda: torch.autograd.grad(sdpa, (qs, ks, vs), dos,
-                                                           retain_graph=True)),
+        "max_abs_err": bwd_abs, "max_err_of_max": bwd_err, "lse_max_abs_err": lse_err,
+        **timed("ms", lambda: flash_attention_op_bwd(q, k, v, o, do, lse), 20),
+        "plain_ms": eager_ms(lambda: flash_attention_bwd(q, k, v, o, do)),
+        "autograd_plain_ms": eager_ms(lambda: torch.autograd.grad(ref, plain, do,
+                                                                  retain_graph=True)),
+        **sdpa_backward_ms(q, k, v, do, 20),
         "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
         else "bytes",
-        "flops": flops,
+        "flops": flops, "bytes": moved,
     }
     print(f"  flash_attention train {forward['shape']}: forward ms={forward['ms']:.5f} "
-          f"sdpa_ms={forward['library_ms']:.5f} max_abs_err={fwd_err:.3e}; backward "
-          f"(torch ops) ms={backward['ms']:.4f} plain_ms={backward['plain_ms']:.4f} "
-          f"sdpa_ms={backward['library_ms']:.4f} bound_ms={backward['bound_ms']:.5f} "
+          f"sdpa_ms={forward['library_ms']:.5f} max_abs_err={fwd_err:.3e} lse_err="
+          f"{lse_err:.3e}; backward (K3b) ms={backward['ms']:.5f} eager_ms="
+          f"{backward['eager_ms']:.5f} plain_ms (flash_attention_bwd, the ops K3b replaced)="
+          f"{backward['plain_ms']:.4f} autograd_plain_ms={backward['autograd_plain_ms']:.4f} "
+          f"sdpa_ms={backward['library_ms']:.5f} sdpa_eager_ms="
+          f"{backward['library_eager_ms']:.5f} bound_ms={backward['bound_ms']:.5f} "
           f"({backward['bound_by']}) rel_err={bwd_err:.3e}", flush=True)
     return {**forward, "max_abs_err": fwd_err, "backward": backward}
+
+
+def _bwd_bounds_hold(S, T, tile, causal, window, q_offset) -> bool:
+    """K3b's loop bounds as ``flash_attention.py`` mirrors them, against the
+    mask: the dK/dV pass's (query tile, key tile) visits hold every visible
+    pair and every (row, key < T) pair of a row that sees no key, the dQ
+    pass's every visible pair, each visit once."""
+    import importlib
+
+    from repro_torch.kernels.flash_attention.ref import visible
+
+    k3 = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    seen = visible(S, T, **kw).numpy()
+    needs = (seen | ~seen.any(1, keepdims=True), seen)
+    visits = ([(qt, kt) for kt in range(-(-T // tile))
+               for qt in k3.bwd_query_tiles(kt, tile, S, T, **kw)],
+              [(qt, kt) for qt in range(-(-S // tile))
+               for kt in k3.bwd_key_tiles(qt, tile, S, T, **kw)])
+    for need, vis in zip(needs, visits):
+        covered = np.zeros_like(need)
+        for qt, kt in vis:
+            covered[qt * tile:(qt + 1) * tile, kt * tile:(kt + 1) * tile] = True
+        if len(vis) != len(set(vis)) or (need & ~covered).any():
+            return False
+    return True
+
+
+def _flash_bwd_case(dev, gen, train):
+    """K3b, K3's gradient (``csrc/flash_attention_bwd.cu``), through
+    ``flash_attention_op_bwd`` after K3's forward with lse: at the train
+    shape (the timing in ``train``, from ``_flash_train``), at rows that
+    see no key (bf16 and fp32, two sizes), at launch.train's fp32 shape, at gemma's
+    heads of 256 (the CUDA cores), and at windowed, ragged, later-chunk,
+    not-causal, D = 192 and negative-offset shapes. Each held to autograd
+    through the plain version on the same inputs and dO (2e-2 / 1e-4 of
+    each gradient's max), the same bits on a second call, the served
+    forward (no lse) bit-equal to the one that writes lse, and the loop
+    bounds' mirror against the mask. Then the HGMMA count of its bf16
+    kernels, and the fp32 call timed at launch.train's shape."""
+    import importlib
+
+    from repro_torch.kernels import build, flash_attention_bwd, flash_attention_op_bwd, \
+        flash_attention_op_ref
+    from repro_torch.kernels.flash_attention.ops import _forward
+
+    k3 = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = (                 # name, B, S, T, H, G, D, dtype, causal, window, q_offset
+        ("train", 8, 512, 512, 32, 4, 64, bf16, True, 0, 0),
+        ("no key", 1, 64, 512, 32, 4, 64, bf16, True, 48, 504),
+        ("no key", 1, 64, 512, 32, 4, 64, f32, True, 48, 504),
+        # the CPU tests' no-key case: 9 of 40 rows see none of 64 keys, so
+        # their 1/T weighs enough that a dS left unmasked shows in dk
+        ("no key, short", 1, 40, 64, 8, 2, 64, bf16, True, 16, 48),
+        ("no key, short", 1, 40, 64, 8, 2, 64, f32, True, 16, 48),
+        ("launch_train", 8, 128, 128, 32, 4, 64, f32, True, 0, 0),
+        ("gemma", 1, 512, 512, 16, 16, 256, bf16, True, 0, 0),
+        ("window, ragged", 1, 200, 200, 8, 2, 128, bf16, True, 64, 0),
+        ("later chunk", 1, 64, 576, 8, 2, 64, bf16, True, 0, 512),
+        ("not causal", 1, 100, 576, 16, 2, 64, bf16, False, 0, 0),
+        ("D = 192", 1, 100, 300, 8, 2, 192, bf16, False, 0, 0),
+        ("D = 80 (cp.async)", 1, 130, 130, 8, 2, 80, bf16, True, 0, 0),
+        ("negative offset", 1, 100, 100, 8, 2, 64, bf16, True, 0, -30),
+    )
+    worst, cases_out, timing = {}, [], {}
+    for name, B, S, T, H, G, D, dtype, causal, window, q_offset in cases:
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        q, do = (torch.randn(B, S, H, D, device=dev, generator=gen).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(B, T, G, D, device=dev, generator=gen).to(dtype)
+                for _ in range(2))
+        served = _forward(q, k, v, causal, window, q_offset)
+        o, lse = _forward(q, k, v, causal, window, q_offset, with_lse=True)
+        first = flash_attention_op_bwd(q, k, v, o, do, lse, **kw)
+        second = flash_attention_op_bwd(q, k, v, o, do, lse, **kw)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(flash_attention_op_ref(*leaves, **kw), leaves, do)
+        errs = [max_err(a, b) / b.float().abs().max().item() for a, b in zip(first, want)]
+        route = k3.bwd_route(dtype, D)
+        case = dict(name=name, dtype=str(dtype)[6:], shape=[B, S, T, H, G, D], **kw,
+                    route=route, err_of_max=errs,
+                    bits_equal_twice=all(_same_bits(a, b) for a, b in zip(first, second)),
+                    served_forward_bits_equal=_same_bits(served, o),
+                    bounds_hold=_bwd_bounds_hold(S, T, k3.BWD_TILE[route], **kw))
+        print(f"  flash_attention_op_bwd {name} {case['dtype']} {case['shape']} {kw} "
+              f"{route}: dq dk dv {' '.join(f'{e:.3e}' for e in errs)} of max, tol "
+              f"{TOL[dtype]}, same bits twice {case['bits_equal_twice']}", flush=True)
+        check(max(errs) <= TOL[dtype] and case["bits_equal_twice"]
+              and case["served_forward_bits_equal"] and case["bounds_hold"]
+              and all(torch.isfinite(g).all().item() for g in first),
+              f"K3b {name} {case['dtype']}: {case}")
+        worst[dtype] = max(worst.get(dtype, 0.0), max(errs))
+        cases_out.append(case)
+        if name in ("launch_train", "gemma"):
+            # the fp32 call's bound: its bytes, or its operations at the fp32
+            # peak outside the tensor cores; gemma's at the bf16 peak
+            flops = 5 * 2 * B * H * S * (S + 1) // 2 * D
+            moved = nbytes(q, k, v, o, do, lse, q, k, v)
+            peak = FP32_FLOPS if dtype == f32 else BF16_FLOPS
+            timing[name] = {
+                "shape": f"q,dO ({B}, {S}, {H}, {D}) k,v ({B}, {T}, {G}, {D}) "
+                         f"{case['dtype']} causal",
+                **timed("ms", lambda: flash_attention_op_bwd(q, k, v, o, do, lse, **kw), 10),
+                "plain_ms": _event_ms(lambda: [flash_attention_bwd(q, k, v, o, do, **kw)
+                                               for _ in range(5)], 5),
+                **sdpa_backward_ms(q, k, v, do, 5),
+                "bound_ms": max(flops / peak, moved / HBM_BYTES_PER_S) * 1e3,
+                "bound_by": "operations" if flops / peak > moved / HBM_BYTES_PER_S
+                else "bytes"}
+            t = timing[name]
+            print(f"  flash_attention_op_bwd {name} {t['shape']}: ms={t['ms']:.5f} "
+                  f"eager_ms={t['eager_ms']:.5f} plain_ms={t['plain_ms']:.4f} "
+                  f"sdpa_ms={t['library_ms']:.5f} bound_ms={t['bound_ms']:.5f} "
+                  f"({t['bound_by']})", flush=True)
+    sass = build.sass_counts("flash_bwd", ("HGMMA", "HMMA"))
+    tc = None if sass is None else {n: c for n, c in sass.items() if "wgmma" in n}
+    print(f"  flash_attention_op_bwd tensor-core kernels SASS: {tc}", flush=True)
+    check(tc is None or (len(tc) == 4 and all(c["HGMMA"] > 0 for c in tc.values())),
+          f"K3b's bf16 kernels lack HGMMA: {tc}")
+    return {
+        "name": "flash_attention_op_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        # no TPU kernel: XLA differentiates the JAX model's attention (gqa)
+        "replaces": "src/repro/models/attention.py:64",
+        **{key: train[key] for key in (
+            "shape", "max_abs_err", "ms", "eager_ms", "plain_ms", "autograd_plain_ms",
+            "library_ms", "library_fwd_bwd_ms", "library_fwd_ms", "library_eager_ms",
+            "bound_ms", "bound_by", "flops", "bytes", "lse_max_abs_err")},
+        "max_err_of_max": worst[bf16], "max_err_of_max_f32": worst[f32],
+        "old_backward_ms": train["plain_ms"],       # flash_attention_bwd, the ops it replaced
+        "cases": cases_out, **timing, "sass": tc,
+    }
 
 
 def _decode_served(dev, gen, B, H, G, D, T, L):
@@ -1075,6 +1252,7 @@ def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = [_relay_case(dev, gen), _flash_case(dev, gen), _decode_case(dev, gen),
             _ssd_case(dev, gen), _ssd_bwd_case(dev, gen)]
+    rows.append(_flash_bwd_case(dev, gen, rows[1]["train"]["backward"]))
     # how far the kernels (and their plain versions) lie from JAX's bf16
     # attention at served shapes: TinyLlama's prefill and decode, gemma's D 256
     rows[1]["gqa_bf16"] = {"tinyllama": _gqa_gaps(dev, gen, "K3", 1, 32, 4, 64, 512)}
@@ -2068,9 +2246,11 @@ def _dist_train(dev, mesh):
     check(finite, "the mesh step's parameters are not finite")
     check(rel <= 1e-3, f"the mesh step's loss {mesh_loss} is {rel:.3e} off the step "
           f"without a mesh ({plain_loss})")
-    check(counts["flash_attention"] == 2 * cfg.n_layers,
-          f"K3 launched {counts['flash_attention']} times in the mesh step: want "
-          f"{2 * cfg.n_layers} (forward + remat)")
+    check(counts["flash_attention"] == 2 * cfg.n_layers
+          and counts["flash_attention_op_bwd"] == cfg.n_layers,
+          f"K3 launched {counts['flash_attention']} and K3b "
+          f"{counts['flash_attention_op_bwd']} times in the mesh step: want "
+          f"{2 * cfg.n_layers} (forward + remat) and {cfg.n_layers}")
     return dict(train_model=cfg.name, train_loss=mesh_loss, train_loss_no_mesh=plain_loss,
                 train_loss_rel_err=rel, train_step_s=step_s, train_step_s_no_mesh=plain_s,
                 train_second_step_s=warm_s, train_second_step_s_no_mesh=plain_warm_s,
@@ -2519,9 +2699,9 @@ def phase_serve_gemma(dev):
 def _probing_k3_grad(forward_errs, backward_errs):
     """K3 through FlashAttentionFn as the model calls it, each forward
     held to the plain version on the same inputs (max |difference|) and
-    each backward to autograd through the plain version on the same
-    inputs and dO (max |difference| of dq, dk, dv, each relative to its
-    largest magnitude), appended to the two lists."""
+    each backward (K3b on the card) to autograd through the plain version
+    on the same inputs and dO (max |difference| of dq, dk, dv, each
+    relative to its largest magnitude), appended to the two lists."""
     from repro_torch.kernels import FlashAttentionFn, flash_attention_op_ref
 
     kernel_forward, kernel_backward = FlashAttentionFn.forward, FlashAttentionFn.backward
@@ -2766,7 +2946,8 @@ def phase_train(dev):
     multipath_device_put (K1 on every leaf of at least 12 MB), bit-exact,
     step and data step carried, then 4 more steps from the restored state
     with 2 microbatches (the accumulation path). K3 runs forward and again
-    under remat in every layer; its gradient is FlashAttentionFn's backward.
+    under remat in every layer; its gradient is K3b, once a layer and
+    microbatch.
 
     Before the counted path, step 1's gradient (the same parameters and
     first batch) is computed apart: every K3 forward and backward in it is
@@ -2883,11 +3064,14 @@ def phase_train(dev):
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     check(int(state.step) == 8, f"AdamW took {int(state.step)} steps, want 8")
     k3_want = 4 * 2 * cfg.n_layers + 4 * 2 * 2 * cfg.n_layers
+    k3b_want = 4 * cfg.n_layers + 4 * 2 * cfg.n_layers
     check(counts["flash_attention"] == k3_want and counts["relay_assemble"] == moved
+          and counts["flash_attention_op_bwd"] == k3b_want
           and counts["decode_attention"] == 0
           and counts["ssd_chunk"] == counts["ssd_chunk_bwd"] == 0,
           f"launches {counts}: want K3 {k3_want} (forward + remat per layer and "
-          f"microbatch), K1 {moved}, K2, K4 and K4b 0")
+          f"microbatch), K3b {k3b_want} (one per layer and microbatch), K1 {moved}, K2, "
+          f"K4 and K4b 0")
     # steps after each call's first, by microbatch count
     steady = {mb: step_ms[i + 1:i + 4] for mb, i in ((1, 0), (2, 4))}
     # one more step with one microbatch, traced (after the counted path)
@@ -3124,11 +3308,12 @@ def _launch_train(dev, arch, plain_path, probe=None):
     --steps 4 --device cuda``, counted: its history, config, launch
     counts, step 0's loss through ``loss_fn`` on the same initial
     parameters and first batch under ``plain_path`` (no mesh, not
-    counted), and its ms and peak GB. With ``probe`` (``_probing_k4_grad``)
-    step 0's gradient is taken again on those parameters and that batch (no
-    mesh, not counted) with every kernel forward and backward held to its
-    plain version on the same inputs (and cotangents), within fp32's
-    tolerance of each output's or gradient's max."""
+    counted), and its ms and peak GB. With ``probe`` (``_probing_k3_grad``
+    or ``_probing_k4_grad``) step 0's gradient is taken again on those
+    parameters and that batch (no mesh, not counted) with every kernel
+    forward and backward held to its plain version on the same inputs (and
+    cotangents), within fp32's tolerance (K3's forward as max |difference|,
+    the rest relative to each output's or gradient's max)."""
     import repro_torch.launch.train as launch_train
     from repro_torch.kernels import reset_launch_counts
     from repro_torch.models import loss_fn
@@ -3196,7 +3381,9 @@ def phase_launch_train(dev):
     the parameters and moments as DTensors on a one-rank NCCL mesh from
     ``make_host_mesh`` (the launcher starts the world and ends it), for
     ``--arch tinyllama-1.1b`` (K3's fp32 kernel forward and under remat;
-    path launch-train) and then ``--arch mamba2-370m`` (K4's CUDA-core
+    path launch-train; its gradient K3b on the CUDA cores, step 0's 44 K3
+    and 22 K3b calls held to their plain versions at 1e-4, not counted)
+    and then ``--arch mamba2-370m`` (K4's CUDA-core
     kernel forward and under remat, its gradient K4b in fp32, through the
     mixer's ``shard_map``; path launch-train:mamba2-370m). Gated: every
     loss finite, step 0's loss within 1e-3 relative of ``loss_fn`` through
@@ -3209,14 +3396,15 @@ def phase_launch_train(dev):
     from repro_torch.kernels import flash_attention_op_ref
 
     cfg, counts, fields = _launch_train(dev, "tinyllama-1.1b", lambda: mock.patch.object(
-        attention, "flash_attention_op", flash_attention_op_ref))
+        attention, "flash_attention_op", flash_attention_op_ref), probe=_probing_k3_grad)
     check(cfg.dtype == torch.float32 and cfg.d_model == 2048 and cfg.n_layers == 22,
           f"--no-reduced gave {cfg.name} d {cfg.d_model} x {cfg.n_layers} in {cfg.dtype}")
     k3_want = 4 * 2 * cfg.n_layers
     check(counts["flash_attention"] == k3_want and counts["decode_attention"] == 0
+          and counts["flash_attention_op_bwd"] == 4 * cfg.n_layers
           and counts["ssd_chunk"] == counts["ssd_chunk_bwd"] == 0,
-          f"launches {counts}: want K3 {k3_want} (forward + remat per layer), K2, K4 and "
-          f"K4b 0")
+          f"launches {counts}: want K3 {k3_want} (forward + remat per layer), K3b "
+          f"{4 * cfg.n_layers} (fp32, CUDA cores), K2, K4 and K4b 0")
     ssm_cfg, ssm_counts, ssm_fields = _launch_train(dev, "mamba2-370m", _plain_ssd_grad,
                                                     probe=_probing_k4_grad)
     check(ssm_cfg.dtype == torch.float32 and ssm_cfg.d_model == 1024
@@ -3226,9 +3414,10 @@ def phase_launch_train(dev):
     n = ssm_cfg.n_layers
     check(ssm_counts["ssd_chunk"] == ssm_counts["ssd_chunk:cuda_cores"] == 4 * 2 * n
           and ssm_counts["ssd_chunk_bwd"] == 4 * n
-          and ssm_counts["flash_attention"] == ssm_counts["decode_attention"] == 0,
+          and ssm_counts["flash_attention"] == ssm_counts["decode_attention"] == 0
+          and ssm_counts["flash_attention_op_bwd"] == 0,
           f"launches {ssm_counts}: want K4 {4 * 2 * n} on the CUDA cores (fp32; forward + "
-          f"remat per layer), K4b {4 * n}, K3 and K2 0")
+          f"remat per layer), K4b {4 * n}, K3, K3b and K2 0")
     report("launch-train", **fields, mamba2=ssm_fields)
     return counts, ssm_counts
 
@@ -3333,6 +3522,12 @@ def main(argv=None) -> int:
 
         traceback.print_exc()
         print(f"FAIL {type(e).__name__}: {e}", flush=True)
+        return 1
+    trained = {"train", "dist", "launch-train"}   # the paths that train through K3
+    k3b = {path: c["flash_attention_op_bwd"] for path, c in counts.items()}
+    if any((n > 0) != (path in trained) for path, n in k3b.items()):
+        print(f"FAIL K3b's launches by path {k3b}: want some on {sorted(trained)} alone",
+              flush=True)
         return 1
     for r in rows:
         r["launches_by_path"] = {path: c[r["name"]] for path, c in counts.items()}

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time edited variants of the port's hand-written kernels on one NVIDIA card.
 
-    python3 kernel_variants.py {k2,k3,k4,k4b} [--out DIR]
+    python3 kernel_variants.py {k2,k3,k3b,k4,k4b} [--out DIR]
 
 Each variant is the kernel's CUDA source (``src/repro_torch/csrc``) with
 a few text edits applied, built with nvcc into a library of its own (one
@@ -10,16 +10,17 @@ version and timed as ``chip_smoke.py`` times the kernels: device ms from a
 CUDA-graph replay of 20 calls, eager ms from the same calls issued back to
 back. An edit whose text is not in the source fails the run, so a variant
 cannot silently time the unedited kernel. The PyTorch library call for the
-same function (SDPA, for K3 and K2; K4 has none) is timed beside each
-case. The sets below hold the design choices behind the present K3, K2,
-K4's tensor-core route and K4b: each variant undoes or changes one of them, by
+same function (SDPA, for K3 and K2, SDPA's backward for K3b; K4 has none)
+is timed beside each case. The sets below hold the design choices behind
+the present K3, K3b, K2, K4's tensor-core route and K4b: each variant undoes
+or changes one of them, by
 text edits or, where the change is a whole design, as another source
 (K4's former design, ``csrc/variants/``). A
 variant listed as report-only prints its errors without failing the run:
 those are the ones whose point is the error they cause, or that leave
-part of the work out to time the rest (K4b's set also holds its two
-mutants, each of which must miss its slow cases by far more than the
-tolerance). Each variant's edited source and nvcc log stay under
+part of the work out to time the rest (K4b's and K3b's sets also hold two
+mutants each, each of which must miss one of its cases by far more than
+the tolerance). Each variant's edited source and nvcc log stay under
 ``--out`` (default ``build/kernel_variants``, git-ignored).
 
 Needs a CUDA card, nvcc (PATH or /usr/local/cuda/bin) and the repository's
@@ -130,6 +131,28 @@ SETS["k4b"] = ("ssd_chunk_bwd.cu", {
      "row items alone", "column items alone", "mutant: key tiles 2+ below the row tile dropped",
      "mutant: state terms dropped"})
 
+_K3B_DS = ("  } else {\n    p = s < A.Sq && lo > hi && t < A.Tk ? inv_t : 0.f;   // a row that sees no key\n"
+           "    ds = 0.f;")
+_K3B_KV = "  kv<<<n_kt * A.G * A.B, kWgThreads * Wkv, smem_kv, stream>>>("
+_K3B_W = "constexpr int kWkv64 = 3;"
+_K3B_DQ = "  dq<<<n_qt * A.H * A.B, kWgThreads * kW, tiles, stream>>>("
+SETS["k3b"] = ("flash_attention_bwd.cu", {
+    "as built": [],
+    "cp.async instead of TMA": [("  int tma = A.vec && A.D % 64 == 0;", "  int tma = 0;")],
+    "two warpgroups a dK/dV block": [(_K3B_W, _K3B_W.replace("3", "2"))],
+    # mutants: each must miss one of the cases by far more than the tolerance
+    "mutant: dS not masked": [(_K3B_DS, _K3B_DS.replace("ds = 0.f;", "ds = p * (dp - dlt);"))],
+    "mutant: far query tiles skipped": [
+        ("    r.n1 = max(0, s_hi / tile + 1 - r.a1);",
+         "    r.n1 = min(2, max(0, s_hi / tile + 1 - r.a1));")],
+    "dK/dV pass alone": [(_K3B_DQ, "  if (0)\n" + _K3B_DQ)],
+    "dQ pass alone": [(_K3B_KV, "  if (0)\n" + _K3B_KV)],
+}, [(torch.bfloat16, 8, 512, 512, 0, 0), (torch.bfloat16, 1, 64, 512, 48, 504),
+    (torch.float32, 1, 64, 512, 48, 504), (torch.bfloat16, 1, 40, 64, 16, 48),
+    (torch.float32, 1, 40, 64, 16, 48), (torch.float32, 8, 128, 128, 0, 0)],
+    {"mutant: dS not masked", "mutant: far query tiles skipped", "dK/dV pass alone",
+     "dQ pass alone"})
+
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
@@ -167,8 +190,10 @@ def build(out: Path, name: str, source: str, edits) -> ctypes.CDLL:
 def k3_cases(lib, cases, dev, gen):
     from repro_torch.kernels import flash_attention_ref
 
+    from repro_torch.kernels.build import _SIGNATURES
+
     fn = lib.flash_attention_launch
-    fn.argtypes = [_P] * 4 + [_I] * 7 + [_L] * 12 + [_I, _I, _I, _F, _P]
+    fn.argtypes = _SIGNATURES["flash_attention_launch"]
     fn.restype = _I
 
     def case(Sq, T, off):
@@ -178,7 +203,7 @@ def k3_cases(lib, cases, dev, gen):
         o = torch.empty_like(q)
 
         def run():
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1, 1, 32, 4,
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None, 1, 1, 32, 4,
                     Sq, T, 64, q.stride(0), q.stride(2), q.stride(1), k.stride(0),
                     k.stride(2), k.stride(1), v.stride(0), v.stride(2), v.stride(1),
                     o.stride(0), o.stride(2), o.stride(1), 1, 0, off, 64 ** -0.5,
@@ -309,6 +334,63 @@ def k4b_cases(lib, cases, dev, gen):
     return rows
 
 
+def k3b_cases(lib, cases, dev, gen):
+    """K3b at TinyLlama's heads (32 query heads on 4 KV heads of 64) through
+    its C entry point, causal: the train shape (8 x 512, bf16), rows that
+    see no key (64 rows past 512 keys with a window of 48, and 40 rows on
+    64 keys with a window of 16 whose last 9 see none; bf16 and fp32) and
+    launch.train's fp32 shape (8 x 128). O and lse come from the plain
+    versions; dq, dk and dv are held to autograd through the plain version
+    on the same inputs and dO, each divided by that gradient's largest
+    magnitude (bf16 2e-2, fp32 1e-4, as in ``chip_smoke.py``)."""
+    from chip_smoke import TOL
+    from repro_torch.kernels import flash_attention_lse_ref, flash_attention_op_ref
+    from repro_torch.kernels.build import _SIGNATURES
+    from repro_torch.kernels.flash_attention.flash_attention import DTYPES
+
+    fn = lib.flash_attention_bwd_launch
+    fn.argtypes = _SIGNATURES["flash_attention_bwd_launch"]
+    fn.restype = _I
+    H, G, D = 32, 4, 64
+    rows = []
+    for dtype, B, S, T, window, off in cases:
+        kw = dict(causal=True, window=window, q_offset=off)
+        q, do = (torch.randn(B, S, H, D, device=dev, generator=gen).to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, T, G, D, device=dev, generator=gen).to(dtype) for _ in range(2))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = flash_attention_op_ref(*leaves, **kw)
+        want = torch.autograd.grad(o, leaves, do)
+        o = o.detach()
+        lse = flash_attention_lse_ref(q.transpose(1, 2), k.transpose(1, 2), **kw)
+        delta = torch.empty_like(lse)
+        grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
+        ts = (q, k, v, o, do) + grads
+
+        def run(q=q, k=k, v=v, o=o, do=do, lse=lse, delta=delta, grads=grads, ts=ts,
+                dtype=dtype, B=B, S=S, T=T, window=window, off=off):
+            rc = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta) + grads),
+                    DTYPES[dtype], B, H, G, S, T, D,
+                    *(st for t in ts for st in t.stride()[:3]), 1, window, off, D ** -0.5,
+                    torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"launch failed: CUDA error {rc}")
+
+        def library(q=q, k=k, v=v, do=do, S=S, T=T):   # SDPA's backward, square only
+            if S != T:
+                return None
+            qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+            return torch.autograd.grad(out, (qs, ks, vs), do.transpose(1, 2))
+
+        run()
+        scale = [w.float().abs().max() for w in want]
+        rows.append((f"{str(dtype)[6:]} B={B} S={S} T={T} window={window} q_offset={off} "
+                     f"(dq dk dv)", tuple(g.float() / m for g, m in zip(grads, scale)),
+                     tuple(w.float() / m for w, m in zip(want, scale)), run, library,
+                     [TOL[dtype]] * 3))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("set", choices=sorted(SETS))
@@ -329,7 +411,8 @@ def main(argv=None) -> int:
         capture_output=True, text=True, timeout=60)
     print(f"{torch.cuda.get_device_name(0)} | {smi.stdout.strip()} | set {args.set}",
           flush=True)
-    make = {"k3": k3_cases, "k2": k2_cases, "k4": k4_cases, "k4b": k4b_cases}[args.set]
+    make = {"k3": k3_cases, "k2": k2_cases, "k4": k4_cases, "k4b": k4b_cases,
+            "k3b": k3b_cases}[args.set]
     library_done = set()
     failed = False
     for name, lib in libs.items():

@@ -1,6 +1,6 @@
-// Shared pieces of the CUDA-core attention kernels (K2 decode, and K3's
-// fp32 prefill; K3's bf16 kernel runs on the tensor cores and uses only
-// kNegInf, mean_v and allow_smem from here): dtype conversion, warp
+// Shared pieces of the CUDA-core attention kernels (K2 decode, K3's fp32
+// prefill, K3b's CUDA-core route; K3's and K3b's tensor-core kernels use
+// only kNegInf, mean_v, block_coords and allow_smem from here): dtype conversion, warp
 // reductions, and the online-softmax update of a few query rows against
 // one 32-key tile staged in shared memory.
 //
@@ -227,6 +227,21 @@ __device__ __forceinline__ float mean_v(const T* v, long long vst, int Tk, int d
   float s = 0.f;
   for (int t = 0; t < Tk; ++t) s += to_float(v[t * vst + d]);
   return Tk > 0 ? s / (float)Tk : 0.f;
+}
+
+// Which (q tile, head, batch) block `idx` of K3's bf16 kernel (and of K3b's
+// dQ pass) computes: q tiles from the last (the most key tiles under the
+// causal mask) to the first; within a q tile batch-major, heads in order,
+// so the R heads of one KV head are neighbours and their K/V tiles come
+// from L2. kernels/flash_attention/flash_attention.py:block_order is the
+// same map.
+__device__ __forceinline__ void block_coords(int idx, int n_qt, int H, int B, int& qt,
+                                             int& h, int& b) {
+  const int per = H * B;
+  qt = n_qt - 1 - idx / per;
+  const int rem = idx - (idx / per) * per;
+  b = rem / H;
+  h = rem - b * H;
 }
 
 // Raise a kernel's dynamic shared-memory limit when it needs more than the

@@ -60,6 +60,12 @@
 // fp32 inputs take the CUDA-core kernel below (fp32 scores from the loaded
 // values, 32-key tiles, one key per lane): TF32 would keep ~3 digits and
 // miss the fp32 tolerance. The choice is by dtype; neither is a fallback.
+//
+// Given an fp32 (B, H, Sq) `lse`, both kernels also write each row's
+// log-sum-exp of its scaled scores (natural log; -1e30 for a row that sees
+// no key, as the plain helper gives), which K3b (flash_attention_bwd.cu)
+// reads to recompute P. Served calls pass null and write only O; the O
+// they write is the same either way.
 #include "attention_common.cuh"
 #include "hopper_common.cuh"
 
@@ -81,7 +87,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      long long ksb, long long kst, long long ksg,
                      long long vsb, long long vst, long long vsg,
                      long long osb, long long oss, long long osh,
-                     int causal, int window, int q_offset, float scale, int vec) {
+                     int causal, int window, int q_offset, float scale, int vec,
+                     float* __restrict__ lse) {
   extern __shared__ __align__(16) float smem[];
   const int QS = q_stride(D), KS = k_stride(D);
   float* qs = smem;                        // kTileQ x QS
@@ -154,6 +161,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int p = sq + q_offset;  // keys [lo, hi] are visible to this row
     const int hi = causal ? min(p, Tk - 1) : Tk - 1;
     const int lo = window > 0 ? max(0, p - window + 1) : 0;
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * H + h) * Sq + sq] = lo > hi ? kNegInf : st[rr].m + logf(st[rr].l);
     if (lo > hi) {
 #pragma unroll
       for (int i = 0; i < DPL; ++i) {
@@ -172,9 +181,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DPL>
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
-               int Sq, int Tk, int D, const long long* s, int causal, int window,
-               int q_offset, float scale, int vec, cudaStream_t stream) {
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int H, int G, int Sq, int Tk, int D, const long long* s, int causal,
+               int window, int q_offset, float scale, int vec, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)(kTileQ * q_stride(D) + kTileK * k_stride(D) +
                                                kTileK * D + kThreads * kRowsPerWarp);
   auto kernel = flash_fwd_f32_kernel<DPL>;
@@ -184,22 +193,22 @@ int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int 
   kernel<<<grid, kThreads, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, H, G, Sq, Tk, D,
       s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-      causal, window, q_offset, scale, vec);
+      causal, window, q_offset, scale, vec, lse);
   return (int)cudaGetLastError();
 }
 
-int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
-                 int Sq, int Tk, int D, const long long* s, int causal, int window,
-                 int q_offset, float scale, int vec, cudaStream_t stream) {
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                 int H, int G, int Sq, int Tk, int D, const long long* s, int causal,
+                 int window, int q_offset, float scale, int vec, cudaStream_t stream) {
   switch ((D + 31) / 32) {
-    case 1: return launch_f32<1>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
-    case 2: return launch_f32<2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
-    case 3: return launch_f32<3>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
-    case 4: return launch_f32<4>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
-    case 5: return launch_f32<5>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
-    case 6: return launch_f32<6>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
-    case 7: return launch_f32<7>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
-    case 8: return launch_f32<8>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 1: return launch_f32<1>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 2: return launch_f32<2>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 3: return launch_f32<3>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 4: return launch_f32<4>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 5: return launch_f32<5>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 6: return launch_f32<6>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 7: return launch_f32<7>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
+    case 8: return launch_f32<8>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale, vec, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -221,20 +230,6 @@ __device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&
   wgmma_commit();
 }
 
-// Which (q tile, head, batch) block `idx` computes: q tiles from the last
-// (the most key tiles under the causal mask) to the first; within a q tile
-// batch-major, heads in order, so the R heads of one KV head are
-// neighbours and their K/V tiles come from L2.
-// kernels/flash_attention/flash_attention.py:block_order is the same map.
-__device__ __forceinline__ void block_coords(int idx, int n_qt, int H, int B, int& qt,
-                                             int& h, int& b) {
-  const int per = H * B;
-  qt = n_qt - 1 - idx / per;
-  const int rem = idx - (idx / per) * per;
-  b = rem / H;
-  h = rem - b * H;
-}
-
 // W warpgroups share one q tile of one head and split its key tiles
 // between them (tile j goes to warpgroup j % W), each with its own
 // two-slot K/V ring and barrier; their partial (max, sum, O) meet in
@@ -250,6 +245,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        long long vsb, long long vst, long long vsg, long long osb,
                        long long oss, long long osh, int causal, int window,
                        int q_offset, float scale_log2, int n_qt, int vec, int tma,
+                       float* __restrict__ lse,
                        const __grid_constant__ CUtensorMap qmap,
                        const __grid_constant__ CUtensorMap kmap,
                        const __grid_constant__ CUtensorMap vmap) {
@@ -470,6 +466,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < kNO; ++e)
         acc[e] = fmaf(pw[e * kWgThreads + wt], (e % 4) < 2 ? f0 : f1, acc[e]);
     }
+    m0 = M0;                                      // the row maxima of the merged sums
+    m1 = M1;
   }
 
 #pragma unroll
@@ -486,6 +484,9 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int hi = causal ? min(p, Tk - 1) : Tk - 1;
     const int lo = window > 0 ? max(0, p - window + 1) : 0;
     bf16* orow = ob + sq * oss;
+    if (lse != nullptr && (lane & 3) == 0)        // log2 domain back to natural log
+      lse[((long long)b * H + h) * Sq + sq] =
+          lo > hi ? kNegInf : ((half ? m1 : m0) + log2f(half ? l1 : l0)) * 0.6931471805599453f;
     if (lo > hi) {
       for (int jj = 0; jj < DP / 8; ++jj)
         for (int e = 0; e < 2; ++e)
@@ -509,9 +510,9 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int DP, int W>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H, int G,
-                int Sq, int Tk, int D, const long long* s, int causal, int window,
-                int q_offset, float scale, int vec, cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                int H, int G, int Sq, int Tk, int D, const long long* s, int causal,
+                int window, int q_offset, float scale, int vec, cudaStream_t stream) {
   // TMA where D fills whole 64-column boxes (and the strides suit it, which
   // `vec` says); cp.async otherwise.
   CUtensorMap maps[3] = {};
@@ -530,7 +531,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   kernel<<<n_qt * H * B, kWgThreads * W, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, B, H, G, Sq, Tk, D,
       s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], s[9], s[10], s[11],
-      causal, window, q_offset, scale * kLog2e, n_qt, vec, tma, maps[0], maps[1], maps[2]);
+      causal, window, q_offset, scale * kLog2e, n_qt, vec, tma, lse, maps[0], maps[1],
+      maps[2]);
   return (int)cudaGetLastError();
 }
 
@@ -538,9 +540,11 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements, in the order
 // q (b, s, h), k (b, t, g), v (b, t, g), o (b, s, h); the last dim of every
-// tensor is contiguous.
+// tensor is contiguous. lse: null, or a contiguous fp32 (B, H, Sq) for each
+// row's log-sum-exp.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o,
-                                      int dtype, int B, int H, int G, int Sq, int Tk, int D,
+                                      float* lse, int dtype, int B, int H, int G, int Sq,
+                                      int Tk, int D,
                                       long long qsb, long long qss, long long qsh,
                                       long long ksb, long long kst, long long ksg,
                                       long long vsb, long long vst, long long vsg,
@@ -557,15 +561,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   bool vec = D % per16 == 0 && aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
   for (int i = 0; i < 12; ++i) vec = vec && s[i] % per16 == 0;
   if (dtype == 0)
-    return dispatch_f32(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset, scale,
-                        vec, st);
+    return dispatch_f32(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
+                        scale, vec, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (D <= 64)
-    return launch_bf16<64, 2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
+    return launch_bf16<64, 2>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
                               scale, vec, st);
   if (D <= 128)
-    return launch_bf16<128, 2>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
+    return launch_bf16<128, 2>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
                                scale, vec, st);
-  return launch_bf16<256, 1>(q, k, v, o, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
+  return launch_bf16<256, 1>(q, k, v, o, lse, B, H, G, Sq, Tk, D, s, causal, window, q_offset,
                              scale, vec, st);
 }

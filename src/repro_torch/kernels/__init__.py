@@ -6,13 +6,14 @@ for a CPU tensor, and for a meta tensor (the dry-run's route: shapes only,
 nothing launched); any other device raises. Each keeps a plain integer ``launches`` count, raised by
 one where the kernel is launched and nowhere else; K4 also counts its
 launches by route (``ssd_chunk.route_launches``). K3 carries a gradient
-through ``FlashAttentionFn`` (its backward is PyTorch ops, recomputing the
-probabilities), K4 through ``SSDChunkFn`` (its backward is K4b, a kernel);
-a launch that autograd would record raises.
+through ``FlashAttentionFn`` (its backward is K3b), K4 through
+``SSDChunkFn`` (its backward is K4b); a launch that autograd would record
+raises.
 
   K1 ``relay_assemble``   <- repro/kernels/relay_copy/relay_copy.py
   K2 ``decode_attention`` <- repro/kernels/decode_attention/decode_attention.py
   K3 ``flash_attention``  <- repro/kernels/flash_attention/flash_attention.py
+  K3b ``flash_attention_op_bwd`` <- none: XLA differentiates K3's JAX oracle
   K4 ``ssd_chunk``        <- repro/kernels/ssd_chunk/ssd_chunk.py
   K4b ``ssd_chunk_bwd``   <- none: XLA differentiates repro/models/ssm.py:ssd_chunked
 """
@@ -28,7 +29,9 @@ from .flash_attention import (
     FlashAttentionFn,
     flash_attention,
     flash_attention_bwd,
+    flash_attention_lse_ref,
     flash_attention_op,
+    flash_attention_op_bwd,
     flash_attention_op_ref,
     flash_attention_ref,
 )
@@ -51,6 +54,7 @@ KERNELS = {
     "relay_assemble": relay_assemble,
     "decode_attention": decode_attention,
     "flash_attention": flash_attention,
+    "flash_attention_op_bwd": flash_attention_op_bwd,
     "ssd_chunk": ssd_chunk,
     "ssd_chunk_bwd": ssd_chunk_bwd,
 }

@@ -42,7 +42,10 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "relay_assemble_launch": [_P, _P, _P, _L, _L, _P],
     "flash_attention_launch": (
-        [_P] * 4 + [_I] * 7 + [_L] * 12 + [_I, _I, _I, _F, _P]
+        [_P] * 5 + [_I] * 7 + [_L] * 12 + [_I, _I, _I, _F, _P]
+    ),
+    "flash_attention_bwd_launch": (
+        [_P] * 10 + [_I] * 7 + [_L] * 24 + [_I, _I, _I, _F, _P]
     ),
     "decode_attention_launch": (
         [_P] * 4 + [_I, _P] + [_I] * 6 + [_L] * 10 + [_I, _F, _P]
@@ -145,8 +148,8 @@ def refuse_grad(kernel: str, *tensors, why: str) -> None:
     """Raise where autograd would record a launch. A kernel writes into a
     buffer the wrapper allocated, so autograd would lose the gradient of
     its inputs without a word. K3 and K4 take gradients through
-    ``FlashAttentionFn`` and ``SSDChunkFn``, whose forwards run with grad
-    mode off; ``why`` says where a caller finds the gradient, or why the
+    ``FlashAttentionFn`` and ``SSDChunkFn`` (K3b and K4b), whose forwards
+    run with grad mode off; ``why`` says where a caller finds the gradient, or why the
     kernel has none."""
     import torch
 

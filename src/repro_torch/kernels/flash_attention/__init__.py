@@ -3,6 +3,7 @@ from .ops import (
     FlashAttentionFn,
     flash_attention_bwd,
     flash_attention_op,
+    flash_attention_op_bwd,
     flash_attention_op_ref,
 )
-from .ref import flash_attention_ref
+from .ref import flash_attention_lse_ref, flash_attention_ref

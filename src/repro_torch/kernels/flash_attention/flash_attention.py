@@ -1,21 +1,24 @@
-"""K3 wrapper: prefill flash attention (``csrc/flash_attention.cu``).
+"""K3 wrapper: prefill flash attention (``csrc/flash_attention.cu``), and
+the launch of its gradient, K3b (``csrc/flash_attention_bwd.cu``).
 
 On a CUDA tensor it launches the kernel; on a CPU tensor it runs the plain
-version. There is no fallback from the one to the other. The kernel takes
+version. There is no fallback from the one to the other. The kernels take
 element strides, so the (B, H, S, D) layout here and the model's
-(B, S, H, D) layout (``ops.py``) launch it without a transposing copy."""
+(B, S, H, D) layout (``ops.py``) launch them without a transposing copy."""
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from .. import build
-from .ref import NEG_INF, flash_attention_ref  # noqa: F401  (JAX's name: a masked score)
+from .ref import NEG_INF, flash_attention_ref, no_key_rows  # noqa: F401  (NEG_INF: JAX's name)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256       # D the CUDA kernels take; the plain versions take any
 TILE_Q = 64              # q rows per block of the bf16 (tensor-core) kernel
+BWD_TC_MAX_HEAD_DIM = 128   # K3b's tensor-core route: bf16 at D <= 128
+BWD_TILE = {"tensor_cores": 64, "cuda_cores": 32}   # K3b's rows and keys per tile
 
 
 def block_order(n_qt: int, H: int, B: int) -> List[Tuple[int, int, int]]:
@@ -28,6 +31,48 @@ def block_order(n_qt: int, H: int, B: int) -> List[Tuple[int, int, int]]:
     KV head's tiles in L2 for its R heads."""
     return [(n_qt - 1 - i // (H * B), i % (H * B) % H, i % (H * B) // H)
             for i in range(n_qt * H * B)]
+
+
+def bwd_route(dtype: torch.dtype, D: int) -> str:
+    """K3b's route (``flash_attention_bwd_launch``'s rule): bf16 at D <=
+    128 on the tensor cores, fp32 and bf16 past D = 128 on the CUDA cores.
+    Neither is a fallback for the other."""
+    return ("tensor_cores" if dtype == torch.bfloat16 and D <= BWD_TC_MAX_HEAD_DIM
+            else "cuda_cores")
+
+
+def bwd_key_tiles(qt: int, tile: int, Sq: int, T: int, *, causal: bool, window: int,
+                  q_offset: int) -> List[int]:
+    """The key tiles K3b's dQ pass walks for query tile ``qt`` (``tile``
+    rows and keys a tile), as K3's forward walks them: every tile holding a
+    key that some row of the query tile sees. Rows that see no key get no
+    dQ, so they add no tile."""
+    q0 = qt * tile
+    p_lo, p_hi = q0 + q_offset, min(q0 + tile, Sq) - 1 + q_offset
+    k_end = min(T, p_hi + 1) if causal else T
+    k_begin = max(0, p_lo - window + 1) // tile * tile if window > 0 else 0
+    return list(range(k_begin // tile, -(-k_end // tile))) if k_end > k_begin else []
+
+
+def bwd_query_tiles(kt: int, tile: int, Sq: int, T: int, *, causal: bool, window: int,
+                    q_offset: int) -> List[int]:
+    """The query tiles K3b's dK/dV pass walks for key tile ``kt``, in order
+    (``query_tiles`` in ``csrc/flash_attention_bwd.cu``): the tiles of the
+    rows that see a key of the tile, and every tile holding a row that sees
+    no key, since such a row's softmax puts 1/T on each of the T keys and
+    so reaches every key's dV. Those rows lie before position 0 (causal)
+    and at or past position T + window - 1 (a window)."""
+    n_qt = -(-Sq // tile)
+    t_hi = min(kt * tile + tile, T) - 1
+    s_lo = max(0, kt * tile - q_offset) if causal else 0
+    s_hi = min(Sq - 1, t_hi + window - 1 - q_offset) if window > 0 else Sq - 1
+    n_pre, s_suf = no_key_rows(Sq, T, causal=causal, window=window, q_offset=q_offset)
+    tiles = list(range(-(-n_pre // tile)))
+    if s_lo <= s_hi:
+        tiles += range(max(len(tiles), s_lo // tile), s_hi // tile + 1)
+    if s_suf < Sq:
+        tiles += range(max(tiles[-1] + 1 if tiles else 0, s_suf // tile), n_qt)
+    return tiles
 
 
 def check_inputs(name: str, q, k, v, dims) -> None:
@@ -61,24 +106,73 @@ def check_head_dim(name: str, D: int) -> None:
 
 
 def launch(q, k, v, out, dims: Sequence[int], strides: Sequence[int], *,
-           causal: bool, window: int, q_offset: int) -> None:
+           causal: bool, window: int, q_offset: int,
+           lse: Optional[torch.Tensor] = None) -> None:
     """Launch K3. dims = (B, H, G, Sq, T, D); strides in elements:
-    q (b, s, h), k (b, t, g), v (b, t, g), out (b, s, h)."""
+    q (b, s, h), k (b, t, g), v (b, t, g), out (b, s, h). ``lse``, a
+    contiguous fp32 (B, H, Sq) tensor, also gets each row's log-sum-exp
+    (for K3b); without it (every served call) the kernel writes only out."""
     build.refuse_grad("flash_attention", q, k, v,
                       why="call flash_attention_op, whose FlashAttentionFn carries it")
     B, H, G, Sq, T, D = dims
     check_head_dim("flash_attention", D)
+    if lse is not None and (lse.shape != (B, H, Sq) or lse.dtype != torch.float32
+                            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"flash_attention: lse must be a contiguous fp32 {(B, H, Sq)} "
+                         f"tensor on {q.device}")
     if out.numel() == 0:
         return
     with torch.cuda.device(q.device):
         rc = build.library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             DTYPES[q.dtype], B, H, G, Sq, T, D, *strides,
             int(causal), int(window), int(q_offset), float(D ** -0.5),
             build.stream_handle(q),
         )
     build.check(rc, "flash_attention")
     flash_attention.launches += 1
+
+
+def launch_bwd(q, k, v, o, do, lse, dq, dk, dv, *, causal: bool, window: int,
+               q_offset: int) -> None:
+    """Launch K3b on the model's layout: q, o, do, dq (B, Sq, H, D); k, v,
+    dk, dv (B, T, G, D), one dtype, the last dim contiguous; lse the
+    forward's fp32 (B, H, Sq), contiguous. Everything it cannot take is
+    refused here, before the library is asked for."""
+    B, Sq, H, D = q.shape
+    T, G = k.shape[1], k.shape[2]
+    tensors = (q, k, v, o, do, dq, dk, dv)
+    if any(t.device != q.device for t in tensors + (lse,)):
+        raise ValueError("flash_attention_bwd: every tensor must be on one device")
+    if q.dtype not in DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"flash_attention_bwd: q, k, v, o, dO and the gradients must "
+                        f"share a dtype in {list(DTYPES)}, got {[t.dtype for t in tensors]}")
+    if (any(t.shape != q.shape for t in (o, do, dq))
+            or any(t.shape != (B, T, G, D) for t in (k, v, dk, dv))):
+        raise ValueError(f"flash_attention_bwd: q, o, dO, dq must be {tuple(q.shape)} "
+                         f"and k, v, dk, dv {(B, T, G, D)}")
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous fp32 "
+                         f"{(B, H, Sq)} tensor, got {tuple(lse.shape)} {lse.dtype}")
+    if G < 1 or H % G:
+        raise ValueError(f"flash_attention_bwd: need H % G == 0, got H={H} G={G}")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("flash_attention_bwd: the last dim of every tensor must be "
+                         "contiguous")
+    check_head_dim("flash_attention_bwd", D)
+    if q.numel() == 0 or k.numel() == 0:
+        raise ValueError("flash_attention_bwd: empty q or k")
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = build.library().flash_attention_bwd_launch(
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+            DTYPES[q.dtype], B, H, G, Sq, T, D,
+            *(s for t in tensors for s in t.stride()[:3]),
+            int(causal), int(window), int(q_offset), float(D ** -0.5),
+            build.stream_handle(q),
+        )
+    build.check(rc, "flash_attention_bwd")
 
 
 def flash_attention(

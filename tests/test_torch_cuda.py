@@ -1,7 +1,7 @@
 """The port on an sm_90 card: the CUDA kernels against their plain
 versions, the data plane bit-exact through real CUDA copies, a reduced
 model on the card against the same model on the CPU, and gradients: K3's
-through FlashAttentionFn, K4's through SSDChunkFn (K4b), 2-layer dense, 2-layer
+through FlashAttentionFn (K3b), K4's through SSDChunkFn (K4b), 2-layer dense, 2-layer
 Mamba2 and one-period hybrid models' against the plain path's, and the
 kernels without a gradient refusing one.
 
@@ -32,7 +32,10 @@ from repro_torch.kernels import (
     decode_attention_op_ref,
     decode_attention_ref,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_lse_ref,
     flash_attention_op,
+    flash_attention_op_bwd,
     flash_attention_op_ref,
     flash_attention_ref,
     relay_assemble,
@@ -599,22 +602,24 @@ def _rel_to_scale(got, want):
     (1, 100, 576, 16, 2, 64, False, 0, 0),     # cross-attention
     (1, 512, 512, 16, 16, 256, True, 0, 0),    # gemma-7b's heads, D = 256
     (1, 100, 300, 8, 2, 192, False, 0, 0),     # D = 192, not causal
+    (1, 40, 64, 8, 2, 64, True, 16, 48),       # the last 9 rows see no key
 ])
 def test_flash_attention_backward_on_the_card_matches_plain(
         dev, dtype, B, S, T, H, G, D, causal, window, q_offset):
-    """K3 through FlashAttentionFn: its output and (dq, dk, dv) against
-    autograd through the plain version on the same inputs and dO, relative
-    to each gradient's largest magnitude."""
+    """K3 through FlashAttentionFn, its backward K3b: its output and (dq,
+    dk, dv) against autograd through the plain version on the same inputs
+    and dO, relative to each gradient's largest magnitude."""
     g = torch.Generator(device=dev).manual_seed(0)
     q = torch.randn(B, S, H, D, device=dev, generator=g).to(dtype)
     k, v = (torch.randn(B, T, G, D, device=dev, generator=g).to(dtype) for _ in range(2))
     do = torch.randn(B, S, H, D, device=dev, generator=g).to(dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-    before = flash_attention.launches
+    before, before_b = flash_attention.launches, flash_attention_op_bwd.launches
     out = flash_attention_op(*leaves, **kw)
     assert flash_attention.launches == before + 1
     got = torch.autograd.grad(out, leaves, do)
+    assert flash_attention_op_bwd.launches == before_b + 1
     plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
     ref = flash_attention_op_ref(*plain, **kw)
     want = torch.autograd.grad(ref, plain, do)
@@ -623,6 +628,110 @@ def test_flash_attention_backward_on_the_card_matches_plain(
     for a, b in zip(got, want):
         assert a.dtype == dtype and torch.isfinite(a).all()
         assert _rel_to_scale(a, b) <= tol
+
+
+def _k3b_inputs(dev, dtype, B, S, T, H, G, D, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(B, S, H, D, device=dev, generator=g).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, T, G, D, device=dev, generator=g).to(dtype) for _ in range(2))
+    return q, k, v, do
+
+
+def test_k3b_at_the_train_shape_matches_plain(dev):
+    """K3b at TinyLlama's train shape (8 x 512 tokens, 32 query heads on 4
+    KV heads of 64, bf16, causal) against autograd through the plain
+    version on the same inputs and dO (2e-2 of each gradient's max), and
+    the forward's lse against the plain helper's."""
+    q, k, v, do = _k3b_inputs(dev, torch.bfloat16, 8, 512, 512, 32, 4, 64)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention_op(*leaves)
+    lse = out.grad_fn.saved_tensors[4]
+    want_lse = flash_attention_lse_ref(q.transpose(1, 2), k.transpose(1, 2))
+    assert (lse - want_lse).abs().max().item() <= 1e-4
+    got = torch.autograd.grad(out, leaves, do)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_op_ref(*plain), plain, do)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all()
+        assert _rel_to_scale(a, b) <= TOL[torch.bfloat16]["atol"]
+
+
+@pytest.mark.parametrize("dtype,B,S,T,H,G,D,window,q_offset", [
+    (torch.bfloat16, 2, 512, 512, 32, 4, 64, 0, 0),     # tensor cores
+    (torch.bfloat16, 1, 40, 64, 8, 2, 64, 16, 48),      # rows that see no key
+    (torch.float32, 8, 128, 128, 32, 4, 64, 0, 0),      # launch.train's fp32 shape
+    (torch.bfloat16, 1, 200, 200, 16, 16, 256, 0, 0),   # CUDA cores at D = 256
+])
+def test_k3b_gives_the_same_bits_twice(dev, dtype, B, S, T, H, G, D, window, q_offset):
+    """No atomics: the same inputs give the same dq, dk, dv bits."""
+    q, k, v, do = _k3b_inputs(dev, dtype, B, S, T, H, G, D, seed=1)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    from repro_torch.kernels.flash_attention.ops import _forward
+
+    o, lse = _forward(q, k, v, True, window, q_offset, with_lse=True)
+    first = flash_attention_op_bwd(q, k, v, o, do, lse, **kw)
+    second = flash_attention_op_bwd(q, k, v, o, do, lse, **kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("dtype,H,G,D,S,T,causal,window,q_offset", [
+    (torch.bfloat16, 32, 4, 64, 512, 512, True, 0, 0),
+    (torch.bfloat16, 64, 8, 128, 512, 576, False, 0, 0),
+    (torch.bfloat16, 16, 16, 256, 512, 512, True, 0, 0),
+    (torch.bfloat16, 32, 4, 64, 64, 512, True, 48, 504),
+    (torch.float32, 32, 4, 64, 128, 128, True, 0, 0),
+])
+def test_k3_output_is_the_same_with_and_without_lse(dev, dtype, H, G, D, S, T, causal,
+                                                    window, q_offset):
+    """Writing the row log-sum-exp for K3b leaves K3's output bit for bit
+    what a served call (no lse) gets, and the lse is the plain helper's."""
+    from repro_torch.kernels.flash_attention.ops import _forward
+
+    q, k, v, _ = _k3b_inputs(dev, dtype, 1, S, T, H, G, D, seed=2)
+    served = _forward(q, k, v, causal, window, q_offset)
+    out, lse = _forward(q, k, v, causal, window, q_offset, with_lse=True)
+    assert torch.equal(served.view(torch.uint8), out.view(torch.uint8))
+    want = flash_attention_lse_ref(q.transpose(1, 2), k.transpose(1, 2), causal=causal,
+                                   window=window, q_offset=q_offset)
+    assert (lse - want).abs().max().item() <= 1e-4
+
+
+def test_k3b_tensor_core_kernels_carry_hgmma(dev):
+    """K3b's bf16 kernels (both passes at D 64 and 128) run on wgmma."""
+    flash_attention_op_bwd(*_k3b_bwd_args(dev))            # builds the library
+    counts = build.sass_counts("flash_bwd", ("HGMMA", "HMMA"))
+    if counts is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    tc = {n: c for n, c in counts.items() if "wgmma" in n}
+    assert len(tc) == 4 and all(c["HGMMA"] > 0 for c in tc.values()), counts
+
+
+def _k3b_bwd_args(dev, dtype=torch.bfloat16, D=64):
+    from repro_torch.kernels.flash_attention.ops import _forward
+
+    q, k, v, do = _k3b_inputs(dev, dtype, 1, 64, 64, 4, 2, D)
+    o, lse = _forward(q, k, v, True, 0, 0, with_lse=True)
+    return q, k, v, o, do, lse
+
+
+def test_k3b_refuses_what_it_cannot_take(dev):
+    """On the card the op launches K3b or raises: no lse, dtypes that
+    differ, an lse of another shape, heads past 256."""
+    q, k, v, o, do, lse = _k3b_bwd_args(dev)
+    before = flash_attention_op_bwd.launches
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_op_bwd(q, k, v, o, do, None)
+    with pytest.raises(TypeError):
+        flash_attention_op_bwd(q, k.float(), v, o, do, lse)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_op_bwd(q, k, v, o, do, lse.transpose(1, 2).contiguous())
+    wide = torch.zeros(1, 8, 2, 264, device=dev, dtype=torch.bfloat16)
+    kv = torch.zeros(1, 8, 1, 264, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D <= 256"):
+        flash_attention_op_bwd(wide, kv, kv, wide, wide,
+                               torch.zeros(1, 2, 8, device=dev))
+    assert flash_attention_op_bwd.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -648,9 +757,10 @@ def test_model_grads_on_the_card_match_plain_path(dev, dtype):
         loss.backward()
         return loss.detach(), [t.grad for t in tree_leaves(live)]
 
-    before = flash_attention.launches
+    before, before_b = flash_attention.launches, flash_attention_op_bwd.launches
     loss, got = grads()
     assert flash_attention.launches - before == 2 * cfg.n_layers   # forward + remat
+    assert flash_attention_op_bwd.launches - before_b == cfg.n_layers   # K3b
     with mock.patch.object(attention, "flash_attention_op", flash_attention_op_ref):
         plain_loss, want = grads()
     assert torch.isfinite(loss)

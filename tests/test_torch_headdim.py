@@ -109,6 +109,7 @@ def test_decode_plain_matches_jax_kernel_and_oracle(D, R):
     (32, 32, True, 8, 0),
     (16, 48, True, 0, 32),
     (24, 40, False, 0, 0),
+    (40, 64, True, 16, 48),           # rows that see no key
 ])
 def test_flash_attention_backward_at_256_matches_jax(S, T, causal, window, q_offset, R):
     """FlashAttentionFn's backward (``flash_attention_bwd``) at D = 256

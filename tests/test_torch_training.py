@@ -189,6 +189,7 @@ def test_remat_gives_the_same_grads():
     (16, 48, True, 0, 32),            # a later chunk of a prompt
     (16, 48, True, 12, 32),
     (24, 40, False, 0, 0),            # cross-attention
+    (40, 64, True, 16, 48),           # the last 9 rows see no key (past T with a window)
 ])
 def test_flash_attention_backward_matches_jax(S, T, causal, window, q_offset, R):
     B, G, D = 2, 2, 16

@@ -40,13 +40,16 @@ Phases, one result line each:
              take, which the model takes) and on the other route where it
              takes the case; at the served shape timed on both and inside
              ssd_op (K4 + the inter-chunk scan + y_off) on both; K4b, K4's
-             gradient, through SSDChunkFn after a forward on each K4 route,
-             at Mamba2-370m's train shape (8 x 512 tokens), at l = 384 with
-             two groups and a ragged l = 300, fast and slow decays, bf16 and
-             fp32, held to its plain version on the same inputs and
-             cotangents, the same bits on a second call, and timed beside
-             its bound, the plain version and autograd through the plain
-             forward; K3b, K3's gradient, after K3's forward with its row
+             gradient, through SSDChunkFn on each of its routes (the tensor
+             cores, bf16's default, and the CUDA cores) after a forward on
+             each K4 route, at Mamba2-370m's train shape (8 x 512 tokens),
+             at l = 384 with two groups and a ragged l = 300, fast and slow
+             decays, bf16 and fp32, held to its plain version on the same
+             inputs and cotangents, the same bits on a second call on each
+             route, the HGMMA count of its tensor-core kernel, and timed
+             (a row a route) beside its bound, the bytes the route moves,
+             the plain version and autograd through the plain forward;
+             K3b, K3's gradient, after K3's forward with its row
              log-sum-exp, at the train shape, at rows that see no key
              (bf16 and fp32), at launch.train's fp32 shape and gemma's
              heads of 256 (both timed; the CUDA cores), and at windowed,
@@ -136,7 +139,8 @@ Phases, one result line each:
              path's; every leaf's gradient finite and non-zero; reported
              beside the leaves' errors, the plain path's noise control and
              the card tests' reduced models; 96 K4 and 48 K4b launches a
-             step; the loss must fall; one step traced
+             step, all on the tensor cores; the loss must fall; one step
+             traced (K4b's share of its device time)
   launch-serve  the serving entry point, repro_torch.launch.serve.run, with
              TinyLlama-1.1B at full width in bf16 and the JAX launcher's
              defaults (6 requests of 48 tokens, 6 new tokens each, request 3
@@ -151,8 +155,8 @@ Phases, one result line each:
              finite, step 0's loss within 1e-3 of loss_fn through the
              plain path on the same weights and batch, step 0's K3 and K3b
              calls held to their plain versions on the same inputs;
-             then the same for mamba2-370m (K4's CUDA-core kernel and K4b
-             in fp32, through the mixer's shard_map), its step 0's K4 and
+             then the same for mamba2-370m (K4's and K4b's CUDA-core
+             kernels in fp32, through the mixer's shard_map), its step 0's K4 and
              K4b calls held to their plain versions on the same inputs
   dryrun     python -m repro_torch.launch.dryrun for tinyllama-1.1b and
              gemma-7b x decode_32k on 16x16 and 2x16x16, and tinyllama-1.1b
@@ -168,7 +172,9 @@ train, the train-ssm phase's 8 steps path train-ssm; phase dist's OLMoE run
 and its train step, each counted apart and summed, are path dist, its
 Mamba2 run path dist-mamba2; the entry points' runs are paths launch-serve,
 launch-train and launch-train:mamba2-370m). K3b must launch on train,
-dist and launch-train and on no other path. The script ends with the
+dist and launch-train and on no other path, K4b on train-ssm (all on the
+tensor cores) and launch-train:mamba2-370m (all on the CUDA cores, fp32)
+and on no other. The script ends with the
 kernels JSON line (launches summed over the paths, and per path), the
 card's name and power limit, and
 {"ok": true, "device": {...}}. It needs a CUDA card and the repository's
@@ -1047,13 +1053,14 @@ def _ssd_case(dev, gen):
     return row
 
 
-def _ssd_bwd_reach(x, a, B, C, Q, dy, dstates):
+def _ssd_bwd_reach(x, a, B, C, Q, dy, dstates, tile):
     """What a K4b that dropped distant work would get wrong: max |part of
-    dx| from row tiles two or more 32-position tiles below the key's tile,
-    and of dC from key tiles two or more above the row's (what the
-    kernel's column and row items walk), each relative to that gradient's
-    max; and max |state term of dx|, w_j dstates B_j, relative to max |dx|.
-    In the model's layout, B and C per group, cotangents dy and dstates."""
+    dx| from row tiles two or more ``tile``-position tiles below the key's
+    tile, and of dC from key tiles two or more above the row's (what the
+    route's column and row items walk: 32 on the CUDA cores, 64 on the
+    tensor cores), each relative to that gradient's max; and max |state
+    term of dx|, w_j dstates B_j, relative to max |dx|. In the model's
+    layout, B and C per group, cotangents dy and dstates."""
     b, l, h, _ = x.shape
     r = h // B.shape[2]
     nc = -(-l // Q)
@@ -1066,7 +1073,7 @@ def _ssd_bwd_reach(x, a, B, C, Q, dy, dstates):
     x, dy, cs = chunks(x), chunks(dy), torch.cumsum(chunks(a), 2)      # (b, nc, Q, h)
     Bh, Ch = (chunks(t).repeat_interleave(r, 3) for t in (B, C))
     i = torch.arange(Q, device=x.device)
-    tiles = i[:, None] // 32 - i[None, :] // 32
+    tiles = i[:, None] // tile - i[None, :] // tile
     diff = cs[:, :, :, None] - cs[:, :, None, :]                       # (b, nc, i, j, h)
     L = torch.where((tiles >= 0)[None, None, :, :, None], torch.exp(diff.clamp(max=0)), 0.0)
     far = (tiles >= 2)[None, None, :, :, None]
@@ -1084,29 +1091,56 @@ def _ssd_bwd_reach(x, a, B, C, Q, dy, dstates):
             "dx_states": ds_B.abs().max().item() / dx_all}
 
 
+def _ssd_bwd_on(which: str):
+    """``SSDChunkFn``'s backward (and so the model's) with K4b forced onto
+    route ``which``."""
+    import functools
+    import importlib
+
+    ops = importlib.import_module("repro_torch.kernels.ssd_chunk.ops")
+    return mock.patch.object(ops, "ssd_chunk_op_bwd",
+                             functools.partial(ops.ssd_chunk_op_bwd, which=which))
+
+
 def _ssd_bwd_case(dev, gen):
     """K4b, K4's gradient, through ``SSDChunkFn`` as the model takes it: at
     the train shape (8 x 512 tokens, Mamba2-370m's 32 heads of 64, one
     group of N = 128, chunk 256), at l = 384 with two groups and at a
     ragged l = 300; fast and slow decays (``_ssd_inputs``), bf16 and fp32,
-    each after a forward on each K4 route that takes the case. dx, da, dB
-    and dC are held to ``ssd_chunk_op_bwd_ref`` on the same inputs and
-    cotangents, each within the dtype's tolerance of that gradient's
-    largest magnitude; a slow case must be able to see a K4b that drops the
-    key tiles two or more below the row tile, or the state terms (each
-    5x the tolerance, ``_ssd_bwd_reach``). K4b twice on the same inputs
-    gives the same bits. Timed at the train shape (device ms through a CUDA
-    graph, eager ms) beside the plain version, autograd through the plain
-    forward, and its bound: the operations of its five causal Q x Q
-    products and state terms at the card's bf16 peak, or the bytes of its
-    inputs and outputs, whichever is longer (the fp32 call's beside it,
-    its operations at the fp32 CUDA-core peak)."""
-    from repro_torch.kernels import ssd_chunk, ssd_chunk_bwd, ssd_chunk_op, ssd_chunk_op_bwd, \
-        ssd_chunk_op_bwd_ref, ssd_chunk_op_ref
-    from repro_torch.kernels.ssd_chunk.ssd_chunk import route, tensor_cores_take
+    on each K4b route that takes the case (the tensor cores for bf16, the
+    CUDA cores for both) after a forward on each K4 route that takes it.
+    dx, da, dB and dC are held to ``ssd_chunk_op_bwd_ref`` on the same
+    inputs and cotangents, each within the dtype's tolerance of that
+    gradient's largest magnitude; a slow case must be able to see a K4b
+    that drops the key tiles two or more below the row tile (32 positions
+    a tile on the CUDA cores, 64 on the tensor cores), or the state terms
+    (each 5x the tolerance, ``_ssd_bwd_reach``). Each route twice on the
+    same inputs gives the same bits; the tensor-core kernel's SASS holds
+    HGMMA. Two rows: the tensor-core route (the bf16 default) timed at the
+    train shape (device ms through a CUDA graph, eager ms) beside the
+    CUDA-core route forced at the same shape, the plain version, autograd
+    through the plain forward and its bound (the operations of its five
+    causal Q x Q products and state terms at the card's bf16 peak, or the
+    bytes of its inputs and outputs, whichever is longer), and the bytes
+    the route moves (its whole scratch on the tensor cores, a head's fp32
+    partials of dB and dC on the CUDA cores, each written and read once:
+    a floor); the CUDA-core
+    route in fp32 at the same shape beside its own bound (its operations
+    at the fp32 CUDA-core peak) and at launch.train's (8 x 128, one ragged
+    chunk)."""
+    from repro_torch.kernels import build, ssd_chunk, ssd_chunk_bwd, ssd_chunk_op, \
+        ssd_chunk_op_bwd, ssd_chunk_op_bwd_ref, ssd_chunk_op_ref
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import ROUTES, bwd_route, route, \
+        tensor_cores_take
 
     Q, h = 256, 32
+    tile = {"cuda_cores": 32, "tensor_cores": 64}
     worst, reach = {}, {}
+
+    def routes(default, dtype):        # the default first, then the other where it takes
+        return [default] + [r for r in ("tensor_cores", "cuda_cores") if r != default and (
+            r == "cuda_cores" or tensor_cores_take(dtype, Q, 64, 128))]
+
     for dtype in (torch.bfloat16, torch.float32):
         for batch, l, groups in ((8, 512, 1), (1, 384, 2), (1, 300, 1)):
             for decay in ("fast", "slow"):
@@ -1116,52 +1150,68 @@ def _ssd_bwd_case(dev, gen):
                 dy = torch.randn(shapes[0], device=dev, generator=gen).to(dtype)
                 dst, dde = (torch.randn(sh, device=dev, generator=gen) for sh in shapes[1:])
                 want = ssd_chunk_op_bwd_ref(x, a, B, C, Q, dy, dst, dde)
-                default = route(dtype, Q, 64, 128)
-                routes = [default] + [r for r in ("tensor_cores", "cuda_cores")
-                                      if r != default and (r == "cuda_cores"
-                                                           or tensor_cores_take(dtype, Q, 64, 128))]
-                for which in routes:
-                    leaves = [t.detach().clone().requires_grad_(True) for t in (x, a, B, C)]
-                    n_bwd, n_fwd = ssd_chunk_bwd.launches, ssd_chunk.route_launches[which]
-                    got = torch.autograd.grad(ssd_chunk_op(*leaves, Q, which=which), leaves,
-                                              (dy, dst, dde))
-                    check(ssd_chunk_bwd.launches == n_bwd + 1
-                          and ssd_chunk.route_launches[which] == n_fwd + 1,
-                          f"ssd_chunk_bwd after {which}: K4b or K4 did not launch once")
-                    errs = [max_err(g, w) / w.float().abs().max().item()
-                            for g, w in zip(got, want)]
-                    print(f"  ssd_chunk_bwd {str(dtype)[6:]} b={batch} l={l} heads={h} "
-                          f"groups={groups} chunk={Q} decay={decay} forward={which}: "
-                          f"dx {errs[0]:.3e} da {errs[1]:.3e} dB {errs[2]:.3e} "
-                          f"dC {errs[3]:.3e} of max (tol {TOL[dtype]})", flush=True)
-                    check(all(g.shape == w.shape and g.dtype == w.dtype
-                              and torch.isfinite(g).all().item() for g, w in zip(got, want))
-                          and max(errs) <= TOL[dtype],
-                          f"ssd_chunk_bwd {dtype} b={batch} l={l} g={groups} {decay} "
-                          f"after {which}: errors {errs} of max")
-                    worst[dtype] = max(worst.get(dtype, 0.0), *errs)
+                for fwd in routes(route(dtype, Q, 64, 128), dtype):
+                    for bwd in routes(bwd_route(dtype, Q, 64, 128), dtype):
+                        leaves = [t.detach().clone().requires_grad_(True) for t in (x, a, B, C)]
+                        n_bwd = ssd_chunk_bwd.route_launches[bwd]
+                        n_fwd = ssd_chunk.route_launches[fwd]
+                        with _ssd_bwd_on(bwd):
+                            got = torch.autograd.grad(ssd_chunk_op(*leaves, Q, which=fwd),
+                                                      leaves, (dy, dst, dde))
+                        check(ssd_chunk_bwd.route_launches[bwd] == n_bwd + 1
+                              and ssd_chunk.route_launches[fwd] == n_fwd + 1,
+                              f"ssd_chunk_bwd {bwd} after {fwd}: K4b or K4 did not launch once "
+                              f"on its route")
+                        errs = [max_err(g, w) / w.float().abs().max().item()
+                                for g, w in zip(got, want)]
+                        print(f"  ssd_chunk_bwd {str(dtype)[6:]} b={batch} l={l} heads={h} "
+                              f"groups={groups} chunk={Q} decay={decay} forward={fwd} "
+                              f"route={bwd}: dx {errs[0]:.3e} da {errs[1]:.3e} dB "
+                              f"{errs[2]:.3e} dC {errs[3]:.3e} of max (tol {TOL[dtype]})",
+                              flush=True)
+                        check(all(g.shape == w.shape and g.dtype == w.dtype
+                                  and torch.isfinite(g).all().item()
+                                  for g, w in zip(got, want))
+                              and max(errs) <= TOL[dtype],
+                              f"ssd_chunk_bwd {dtype} b={batch} l={l} g={groups} {decay} "
+                              f"{bwd} after {fwd}: errors {errs} of max")
+                        worst[bwd, dtype] = max(worst.get((bwd, dtype), 0.0), *errs)
                 if decay == "slow":
-                    rch = _ssd_bwd_reach(x, a, B, C, Q, dy, dst)
-                    reach[f"{str(dtype)[6:]} l={l} g={groups}"] = rch
-                    print(f"  ssd_chunk_bwd reach {rch}", flush=True)
-                    check(max(rch["dx_far"], rch["dC_far"]) >= 5 * TOL[dtype]
-                          and rch["dx_states"] >= 5 * TOL[dtype],
-                          f"ssd_chunk_bwd {dtype} l={l} slow: the case cannot see distant "
-                          f"work: {rch}")
-    # the train shape, bf16: bits on two calls, times, bounds
+                    for bwd in routes(bwd_route(dtype, Q, 64, 128), dtype):
+                        rch = _ssd_bwd_reach(x, a, B, C, Q, dy, dst, tile[bwd])
+                        reach[f"{str(dtype)[6:]} l={l} g={groups} {bwd}"] = rch
+                        print(f"  ssd_chunk_bwd reach ({bwd}, tiles of {tile[bwd]}) {rch}",
+                              flush=True)
+                        check(max(rch["dx_far"], rch["dC_far"]) >= 5 * TOL[dtype]
+                              and rch["dx_states"] >= 5 * TOL[dtype],
+                              f"ssd_chunk_bwd {dtype} l={l} slow: the case cannot see distant "
+                              f"work on the {bwd}: {rch}")
+    # the train shape, bf16: bits on two calls on each route, times, bounds
     x, a, B, C = _ssd_inputs(dev, gen, torch.bfloat16, 512, h, 1, "fast", batch=8)
     b, l, _, P = x.shape
     g, N = B.shape[2], B.shape[3]
+    nc = l // Q
     with torch.no_grad():
         y, st, de = ssd_chunk_op(x, a, B, C, Q)
     dy = torch.randn(y.shape, device=dev, generator=gen).to(torch.bfloat16)
     dst, dde = torch.randn_like(st), torch.randn_like(de)
     args = (x, a, B, C, Q, dy, dst, dde)
-    first, second = ssd_chunk_op_bwd(*args), ssd_chunk_op_bwd(*args)
-    bits = all(_same_bits(u, v) for u, v in zip(first, second))
-    check(bits, "K4b gave other bits on a second call with the same inputs")
+    default = bwd_route(x.dtype, Q, P, N)
+    check(default == "tensor_cores", f"K4b's default route at the train shape is {default}")
     want = ssd_chunk_op_bwd_ref(*args)
-    abs_err = max(max_err(u, w) for u, w in zip(first, want))
+    bits, abs_err = {}, {}
+    for which in ("tensor_cores", "cuda_cores"):
+        first = ssd_chunk_op_bwd(*args, which=which)
+        second = ssd_chunk_op_bwd(*args, which=which)
+        bits[which] = all(_same_bits(u, v) for u, v in zip(first, second))
+        check(bits[which], f"K4b on the {which} gave other bits on a second call with the "
+                           f"same inputs")
+        abs_err[which] = max(max_err(u, w) for u, w in zip(first, want))
+    sass = build.sass_counts("ssd_chunk_bwd_tc", ("HGMMA", "HMMA"))
+    print(f"  ssd_chunk_bwd tensor-core kernel SASS: {sass}", flush=True)
+    check(sass is None or (sass and all(c["HGMMA"] > 0 and c["HMMA"] == 0
+                                        for c in sass.values())),
+          f"K4b's tensor-core kernel has no HGMMA instruction, or an HMMA: {sass}")
     leaves = [t.detach().clone().requires_grad_(True) for t in (x, a, B, C)]
     plain_out = ssd_chunk_op_ref(*leaves, Q)
 
@@ -1169,26 +1219,39 @@ def _ssd_bwd_case(dev, gen):
         fn()
         return _event_ms(lambda: [fn() for _ in range(reps)], reps)
 
-    nc = l // Q
     tri = Q * (Q + 1) // 2
     # S once per group; dM, M^T dy, dS B, dS^T C per head over the causal
     # half; the state terms dstates B and dstates^T x per head
     flops = 2 * b * nc * (g * tri * N + h * (2 * tri * P + 2 * tri * N + 2 * Q * N * P))
-    moved = nbytes(x, a, B, C, dy, dst, dde, *first)
+    moved = nbytes(x, a, B, C, dy, dst, dde, *want)   # dx, dB, dC bf16, da fp32
+    lib = build.library()
+    slices = lib.ssd_chunk_bwd_head_slices(b, h, g, l, Q, N)
+    f4 = 4
+    # what each route moves besides its inputs and outputs, each written
+    # once and read at least once: on the tensor cores its whole scratch
+    # (the row and column sums of G and u, a slice of heads' partials of dB
+    # and dC, dstates in bf16 parts, which each of a head's dB and dx items
+    # reads again); on the CUDA cores the sums and a head's fp32 partials
+    sums = 3 * b * h * nc * Q * f4 * 2
+    tc_moved = moved + lib.ssd_chunk_bwd_scratch_floats(
+        ROUTES["tensor_cores"], b, h, g, l, Q, P, N) * f4 * 2
     xf, Bf, Cf, dyf = (t.float() for t in (x, B, C, dy))
     moved_f32 = 2 * nbytes(xf, a, Bf, Cf) + nbytes(dyf, dst, dde)   # dx..dC are fp32 too
-    row = {
-        "name": "ssd_chunk_bwd", "route": "cuda",
+    cc_moved = moved_f32 + sums + 2 * b * l * h * N * f4 * 2
+    shape = (f"x, dy ({b}, {l}, {h}, {P}) {{}}, a fp32, B,C ({b}, {l}, {g}, {N}) {{}}, "
+             f"chunk {Q}; dstates, ddecay fp32")
+    tc = {
+        "name": "ssd_chunk_bwd:tensor_cores", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_chunk_bwd.cu",
         # no TPU kernel: XLA differentiates the JAX model's ssd_chunked
         "replaces": "src/repro/models/ssm.py:33",
-        "shape": f"x, dy ({b}, {l}, {h}, {P}) bf16, a fp32, B,C ({b}, {l}, {g}, {N}) bf16, "
-                 f"chunk {Q}; dstates, ddecay fp32",
-        "max_abs_err": abs_err,
-        "max_err_of_max": worst[torch.bfloat16], "max_err_of_max_f32": worst[torch.float32],
-        "bits_equal_twice": bits,
+        "kernel": "ssd_chunk_bwd_tc_kernel (bf16, the default where tensor_cores_take holds)",
+        "shape": shape.format("bf16", "bf16"),
+        "max_abs_err": abs_err["tensor_cores"],
+        "max_err_of_max": worst["tensor_cores", torch.bfloat16],
+        "bits_equal_twice": bits["tensor_cores"], "head_slices": slices,
         **timed("ms", lambda: ssd_chunk_op_bwd(*args), 10),
-        **timed("f32_ms", lambda: ssd_chunk_op_bwd(xf, a, Bf, Cf, Q, dyf, dst, dde), 10),
+        **timed("cuda_cores_ms", lambda: ssd_chunk_op_bwd(*args, which="cuda_cores"), 10),
         **timed("plain_ms", lambda: ssd_chunk_op_bwd_ref(*args), 3),
         "autograd_plain_ms": eager_ms(lambda: torch.autograd.grad(
             plain_out, leaves, (dy, dst, dde), retain_graph=True)),
@@ -1196,17 +1259,50 @@ def _ssd_bwd_case(dev, gen):
         "bound_ms": max(flops / BF16_FLOPS, moved / HBM_BYTES_PER_S) * 1e3,
         "bound_by": "operations" if flops / BF16_FLOPS > moved / HBM_BYTES_PER_S
         else "bytes",
-        # the fp32 call's own bound: its bytes, or its operations at the
-        # card's fp32 peak outside the tensor cores
-        "f32_bound_ms": max(flops / FP32_FLOPS, moved_f32 / HBM_BYTES_PER_S) * 1e3,
-        "flops": flops, "bytes": moved, "bytes_f32": moved_f32, "reach": reach,
+        "flops": flops, "bytes": moved, "route_bytes": tc_moved,
+        "route_bytes_ms": tc_moved / HBM_BYTES_PER_S * 1e3, "sass": sass,
+        "reach": {k: v for k, v in reach.items() if k.endswith("tensor_cores")},
     }
-    print(f"  ssd_chunk_bwd train shape: ms={row['ms']:.4f} eager_ms={row['eager_ms']:.4f} "
-          f"f32_ms={row['f32_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-          f"autograd_plain_ms={row['autograd_plain_ms']:.4f} bound_ms={row['bound_ms']:.5f} "
-          f"f32_bound_ms={row['f32_bound_ms']:.5f} "
-          f"({row['bound_by']}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB)", flush=True)
-    return row
+    # launch.train's shape: fp32, 8 x 128 tokens, one ragged chunk of 128
+    xl, al, Bl, Cl = _ssd_inputs(dev, gen, torch.float32, 128, h, 1, "slow", batch=8)
+    with torch.no_grad():
+        yl, stl, del_ = ssd_chunk_op(xl, al, Bl, Cl, Q)
+    largs = (xl, al, Bl, Cl, Q, torch.randn_like(yl), torch.randn_like(stl),
+             torch.randn_like(del_))
+    f32_args = (xf, a, Bf, Cf, Q, dyf, dst, dde)
+    f32_err = max(max_err(u, w) for u, w in zip(ssd_chunk_op_bwd(*f32_args),
+                                                ssd_chunk_op_bwd_ref(*f32_args)))
+    cc = {
+        "name": "ssd_chunk_bwd:cuda_cores", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_chunk_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:33",
+        "kernel": "ssd_chunk_bwd_kernel (fp32, and bf16 shapes the tensor cores do not take)",
+        "shape": shape.format("fp32", "fp32"),
+        "max_abs_err": f32_err, "max_abs_err_bf16": abs_err["cuda_cores"],
+        "max_err_of_max": worst["cuda_cores", torch.float32],
+        "max_err_of_max_bf16": worst["cuda_cores", torch.bfloat16],
+        "bits_equal_twice": bits["cuda_cores"],
+        **timed("ms", lambda: ssd_chunk_op_bwd(*f32_args), 10),
+        **timed("plain_ms", lambda: ssd_chunk_op_bwd_ref(*f32_args), 3),
+        **timed("launch_train_shape_ms", lambda: ssd_chunk_op_bwd(*largs), 10),
+        "library_ms": None,
+        # its own bound: its bytes, or its operations at the card's fp32
+        # peak outside the tensor cores
+        "bound_ms": max(flops / FP32_FLOPS, moved_f32 / HBM_BYTES_PER_S) * 1e3,
+        "bound_by": "operations" if flops / FP32_FLOPS > moved_f32 / HBM_BYTES_PER_S
+        else "bytes",
+        "flops": flops, "bytes": moved_f32, "route_bytes": cc_moved,
+        "reach": {k: v for k, v in reach.items() if k.endswith("cuda_cores")},
+    }
+    tc["f32_ms"], tc["f32_eager_ms"] = cc["ms"], cc["eager_ms"]
+    print(f"  ssd_chunk_bwd train shape: tensor cores ms={tc['ms']:.5f} "
+          f"eager_ms={tc['eager_ms']:.5f} ({slices} head slices) cuda_cores_ms="
+          f"{tc['cuda_cores_ms']:.5f} f32_ms={cc['ms']:.5f} plain_ms={tc['plain_ms']:.5f} "
+          f"autograd_plain_ms={tc['autograd_plain_ms']:.5f} bound_ms={tc['bound_ms']:.5f} "
+          f"({tc['bound_by']}; {flops / 1e9:.2f} GFLOP, {moved / 1e6:.1f} MB; the route moves "
+          f"{tc_moved / 1e6:.1f} MB) f32_bound_ms={cc['bound_ms']:.5f} launch.train shape "
+          f"f32 ms={cc['launch_train_shape_ms']:.5f}", flush=True)
+    return [tc, cc]
 
 
 def _ssd_op_on(which: str):
@@ -1251,7 +1347,7 @@ def _gqa_gaps(dev, gen, kind, B, H, G, D, T, kv_len=None):
 def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = [_relay_case(dev, gen), _flash_case(dev, gen), _decode_case(dev, gen),
-            _ssd_case(dev, gen), _ssd_bwd_case(dev, gen)]
+            _ssd_case(dev, gen), *_ssd_bwd_case(dev, gen)]
     rows.append(_flash_bwd_case(dev, gen, rows[1]["train"]["backward"]))
     # how far the kernels (and their plain versions) lie from JAX's bf16
     # attention at served shapes: TinyLlama's prefill and decode, gemma's D 256
@@ -3217,11 +3313,12 @@ def phase_train_ssm(dev):
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     check(int(state.step) == 8, f"AdamW took {int(state.step)} steps, want 8")
     want = {"ssd_chunk": 8 * 2 * cfg.n_layers, "ssd_chunk_bwd": 8 * cfg.n_layers,
-            "ssd_chunk:tensor_cores": 8 * 2 * cfg.n_layers}
+            "ssd_chunk:tensor_cores": 8 * 2 * cfg.n_layers,
+            "ssd_chunk_bwd:tensor_cores": 8 * cfg.n_layers, "ssd_chunk_bwd:cuda_cores": 0}
     check(all(counts[k] == v for k, v in want.items())
           and all(n == 0 for k, n in launch_counts().items() if k not in want),
           f"launches {counts}: want {want} (96 K4 forwards, forward + remat, and 48 K4b "
-          f"a step) and no other kernel")
+          f"a step, all on the tensor cores) and no other kernel")
     steady = step_ms[1:4] + step_ms[5:]           # each train call's first step apart
     step_fn = make_train_step(cfg, TrainConfig(microbatches=1, remat=True, opt=opt))
     batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
@@ -3229,8 +3326,10 @@ def phase_train_ssm(dev):
     step_fn(params, state, batch)                # warm, then one step traced
     trace = _device_time(lambda: step_fn(params, state, batch), top=16)
     if trace["device_ms"] != "not measured":
-        trace["k4b_share"] = sum(k["ms"] for k in trace["top"]
-                                 if "ssd_chunk_bwd" in k["name"]) / trace["device_ms"]
+        # K4b's kernels: the tensor-core kernel, its group sum and the da pass
+        k4b = [k for k in trace["top"] if "ssd_chunk_bwd" in k["name"]]
+        trace["k4b_kernels"] = [k["name"] for k in k4b]
+        trace["k4b_share"] = sum(k["ms"] for k in k4b) / trace["device_ms"]
     report("train-ssm", model=cfg.name, params=sum(t.numel() for t in tree_leaves(params)),
            weight_bytes=param_bytes(cfg), batch=[8, 512], lr=opt.lr,
            warmup_steps=opt.warmup_steps, losses=losses, step_ms=step_ms,
@@ -3413,11 +3512,11 @@ def phase_launch_train(dev):
           f"{ssm_cfg.dtype}")
     n = ssm_cfg.n_layers
     check(ssm_counts["ssd_chunk"] == ssm_counts["ssd_chunk:cuda_cores"] == 4 * 2 * n
-          and ssm_counts["ssd_chunk_bwd"] == 4 * n
+          and ssm_counts["ssd_chunk_bwd"] == ssm_counts["ssd_chunk_bwd:cuda_cores"] == 4 * n
           and ssm_counts["flash_attention"] == ssm_counts["decode_attention"] == 0
           and ssm_counts["flash_attention_op_bwd"] == 0,
           f"launches {ssm_counts}: want K4 {4 * 2 * n} on the CUDA cores (fp32; forward + "
-          f"remat per layer), K4b {4 * n}, K3, K3b and K2 0")
+          f"remat per layer), K4b {4 * n} on the CUDA cores, K3, K3b and K2 0")
     report("launch-train", **fields, mamba2=ssm_fields)
     return counts, ssm_counts
 
@@ -3523,15 +3622,29 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print(f"FAIL {type(e).__name__}: {e}", flush=True)
         return 1
-    trained = {"train", "dist", "launch-train"}   # the paths that train through K3
-    k3b = {path: c["flash_attention_op_bwd"] for path, c in counts.items()}
-    if any((n > 0) != (path in trained) for path, n in k3b.items()):
-        print(f"FAIL K3b's launches by path {k3b}: want some on {sorted(trained)} alone",
-              flush=True)
+    for kernel, trained in (
+            ("flash_attention_op_bwd", {"train", "dist", "launch-train"}),  # through K3
+            ("ssd_chunk_bwd", {"train-ssm", "launch-train:mamba2-370m"})):  # through K4
+        by_path = {path: c[kernel] for path, c in counts.items()}
+        if any((n > 0) != (path in trained) for path, n in by_path.items()):
+            print(f"FAIL {kernel}'s launches by path {by_path}: want some on "
+                  f"{sorted(trained)} alone", flush=True)
+            return 1
+
+    def launches(c, name):             # a path that counts no routes launched none there
+        if name in c:
+            return c[name]
+        if c[name.split(":")[0]]:
+            raise SmokeFailure(f"{name}: a path launched the kernel but counted no routes")
+        return 0
+
+    try:
+        for r in rows:
+            r["launches_by_path"] = {path: launches(c, r["name"]) for path, c in counts.items()}
+            r["launches"] = sum(r["launches_by_path"].values())
+    except SmokeFailure as e:
+        print(f"FAIL {e}", flush=True)
         return 1
-    for r in rows:
-        r["launches_by_path"] = {path: c[r["name"]] for path, c in counts.items()}
-        r["launches"] = sum(r["launches_by_path"].values())
     print(json.dumps({"kernels": rows}), flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time edited variants of the port's hand-written kernels on one NVIDIA card.
 
-    python3 kernel_variants.py {k2,k3,k3b,k4,k4b} [--out DIR]
+    python3 kernel_variants.py {k2,k3,k3b,k4,k4b,k4b-cuda-cores} [--out DIR]
 
 Each variant is the kernel's CUDA source (``src/repro_torch/csrc``) with
 a few text edits applied, built with nvcc into a library of its own (one
@@ -12,13 +12,14 @@ back. An edit whose text is not in the source fails the run, so a variant
 cannot silently time the unedited kernel. The PyTorch library call for the
 same function (SDPA, for K3 and K2, SDPA's backward for K3b; K4 has none)
 is timed beside each case. The sets below hold the design choices behind
-the present K3, K3b, K2, K4's tensor-core route and K4b: each variant undoes
-or changes one of them, by
+the present K3, K3b, K2, K4's tensor-core route and K4b's two routes
+(k4b: the tensor cores, the bf16 default; k4b-cuda-cores: the fp32
+kernel): each variant undoes or changes one of them, by
 text edits or, where the change is a whole design, as another source
 (K4's former design, ``csrc/variants/``). A
 variant listed as report-only prints its errors without failing the run:
 those are the ones whose point is the error they cause, or that leave
-part of the work out to time the rest (K4b's and K3b's sets also hold two
+part of the work out to time the rest (K4b's sets and K3b's also hold two
 mutants each, each of which must miss one of its cases by far more than
 the tolerance). Each variant's edited source and nvcc log stay under
 ``--out`` (default ``build/kernel_variants``, git-ignored).
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import shutil
 import subprocess
 import sys
@@ -92,20 +94,81 @@ SETS = {
          "y items alone", "state items alone", "no item work (fixed costs)"}),
 }
 
-_K4B_ROW = "      scores(crow, dyr, bt, xt, warp, N, P4, lane, s, dm);\n"
-_K4B_COL = "    scores(crow, dyr, bt, xt, warp, N, P4, lane, s, dm);\n"
-_K4B_NO_S = "    for (int k = 0; k < kRows; ++k) s[k] = dm[k] = crow[k] * bt[lane];\n"
-_K4B_ITEM = "  if (o0 >= valid) return;             // uniform over the block"
-_K4B_DX = "  if (act_p) {\n    float v[AP];"
-_K4B_DB = "  if (act_n) {\n    float v[AN];"
+# K4b's tensor-core route (the bf16 default) and, as k4b-cuda-cores, the
+# CUDA-core route (fp32, and bf16 shapes the tensor cores do not take)
+_K4B_PARTS = ("constexpr int kPartsM = 2;", "constexpr int kPartsDS = 2;",
+              "constexpr int kPartsST = 2;")
+_K4B_SLICES = "  return (R + hs - 1) / hs;"
+_K4B_KINDS = "  if (kind / A.n_t == kRowItem)"
+_K4B_ROW_K = ("      const bool k0 = !diag || col <= row0 + 8 * r;",
+              "      const bool k1 = !diag || col + 1 <= row0 + 8 * r;")
+_K4B_COL_K = ("      const bool k0 = !diag || col >= row0 + 8 * r;",
+              "      const bool k1 = !diag || col + 1 >= row0 + 8 * r;")
+_K4B_DC = "wgmma_pv<NBC * 64>(dc, pa[q][k], db);"
+_K4B_DB = "wgmma_pv<NBC * 64>(db, pd[q][k], dc);"
+_K4B_DX = "wgmma_pv<PB * 64>(dx, pm[q][k], mndesc(dyt, k));"
+_K4B_T1 = "        const float v0 = w[r] * t1[e], v1 = w[r] * t1[e + 1];"
+_K4B_T2 = "    for (int e = 0; e < NBC * 32; ++e) db[e] = fmaf(w[(e % 4) / 2], t2[e], db[e]);"
+
+
+def _only(kind):                  # every other item kind returns at once
+    return [(_K4B_KINDS, f"  if (kind / A.n_t != {kind}) return;\n" + _K4B_KINDS)]
+
+
 SETS["k4b"] = ("ssd_chunk_bwd.cu", {
+    "as built": [],
+    "one bf16 part (M, dS, dstates)": [(s, s.replace("2;", "1;")) for s in _K4B_PARTS],
+    "three bf16 parts (M, dS, dstates)": [(s, s.replace("2;", "3;")) for s in _K4B_PARTS],
+    "dstates in one bf16 part": [(_K4B_PARTS[2], _K4B_PARTS[2].replace("2;", "1;"))],
+    "per-head partials (slices of 1 head)": [(_K4B_SLICES, "  return R;")],
+    "slices of 4 heads": [(_K4B_SLICES, "  return (R + 3) / 4;")],
+    "slices of 16 heads": [(_K4B_SLICES, "  return (R + 15) / 16;")],
+    "one partial a group (all heads in-kernel)": [(_K4B_SLICES, "  return 1;")],
+    "S recomputed for every head": [
+        ("    if (hi == 0) {                                 // S = C_i B_kt^T",
+         "    if (true) {                                 // S = C_i B_kt^T"),
+        ("    if (hi == 0) {                                 // S^T = B_j C_i^T",
+         "    if (true) {                                 // S^T = B_j C_i^T")],
+    "all dstates tiles in one round (one block an SM)": [
+        ("A.st_round > 1 && bytes() > kTwoBlockSmem;", "A.st_round > 1 && bytes() > kMaxSmem;")],
+    "no products from register operands": [(s, "if (0) " + s) for s in (_K4B_DC, _K4B_DB, _K4B_DX)],
+    "no state terms": [("    if (k_it + 1 < n_it) continue;", "    continue;"),
+                       ("    if (k_it + 1 == n_it) {                        // the head's state",
+                        "    if (false) {                        // the head's state")],
+    "row items alone": _only("kRowItem"),
+    "dB items alone": _only("kColBItem"),
+    "dx items alone": _only("kColXItem"),
+    "no item work (fixed costs)": [(_K4B_KINDS, "  return;\n" + _K4B_KINDS)],
+    # mutants: each must fail the slow cases
+    "mutant: key tiles 2+ below the row tile dropped": [
+        (s, s.replace("= !diag", "= kt + 2 > t && !diag").replace("|| col", "|| kt + 2 > t && col"))
+        for s in _K4B_ROW_K] + [
+        (s, s.replace("= !diag", "= k_it < 2 && !diag").replace("|| col", "|| k_it < 2 && col"))
+        for s in _K4B_COL_K],
+    "mutant: state terms dropped": [
+        (_K4B_T1, _K4B_T1.replace("w[r] *", "0.f *")),
+        (_K4B_T2, _K4B_T2.replace("fmaf(w[(e % 4) / 2], t2[e], db[e])", "db[e] + 0.f * t2[e]"))],
+}, [(torch.bfloat16, "fast", 8, 512, 1), (torch.bfloat16, "slow", 8, 512, 1),
+    (torch.bfloat16, "slow", 1, 384, 2), (torch.bfloat16, "slow", 1, 300, 1)],
+    {"one bf16 part (M, dS, dstates)", "three bf16 parts (M, dS, dstates)",
+     "dstates in one bf16 part", "no products from register operands", "no state terms",
+     "row items alone", "dB items alone", "dx items alone", "no item work (fixed costs)",
+     "mutant: key tiles 2+ below the row tile dropped", "mutant: state terms dropped"})
+
+_K4B_CC_ROW = "      scores(crow, dyr, bt, xt, warp, N, P4, lane, s, dm);\n"
+_K4B_CC_COL = "    scores(crow, dyr, bt, xt, warp, N, P4, lane, s, dm);\n"
+_K4B_CC_NO_S = "    for (int k = 0; k < kRows; ++k) s[k] = dm[k] = crow[k] * bt[lane];\n"
+_K4B_CC_ITEM = "  if (o0 >= valid) return;             // uniform over the block"
+_K4B_CC_DX = "  if (act_p) {\n    float v[AP];"
+_K4B_CC_DB = "  if (act_n) {\n    float v[AN];"
+SETS["k4b-cuda-cores"] = ("ssd_chunk_bwd.cu", {
     "as built": [],
     "no products": [("if (act_n) accumulate(acc,", "if (false) accumulate(acc,"),
                     ("if (act_p) accumulate(ax,", "if (false) accumulate(ax,"),
                     ("if (act_n) accumulate(ab,", "if (false) accumulate(ab,")],
-    "no scores": [(_K4B_ROW, "  " + _K4B_NO_S), (_K4B_COL, _K4B_NO_S)],
-    "no state terms": [(_K4B_DX, _K4B_DX.replace("act_p", "false")),
-                       (_K4B_DB, _K4B_DB.replace("act_n", "false"))],
+    "no scores": [(_K4B_CC_ROW, "  " + _K4B_CC_NO_S), (_K4B_CC_COL, _K4B_CC_NO_S)],
+    "no state terms": [(_K4B_CC_DX, _K4B_CC_DX.replace("act_p", "false")),
+                       (_K4B_CC_DB, _K4B_CC_DB.replace("act_n", "false"))],
     "no staging after the first tile": [
         ("      stage_cols<T>(bt, Bb, A.bst, j0, valid, N, N);\n"
          "      stage_cols<T>(xt, xb, A.xst, j0, valid, P, P4);",
@@ -115,8 +178,8 @@ SETS["k4b"] = ("ssd_chunk_bwd.cu", {
          "    stage_rows<T>(dyr, dyb, A.dyst, i0, valid, P, P4);",
          "    if (i0 == o0) {\n    stage_rows<T>(crow, Cb, A.cst, i0, valid, N, N);\n"
          "    stage_rows<T>(dyr, dyb, A.dyst, i0, valid, P, P4); }")],
-    "row items alone": [(_K4B_ITEM, "  if (o0 >= valid || column) return;")],
-    "column items alone": [(_K4B_ITEM, "  if (o0 >= valid || !column) return;")],
+    "row items alone": [(_K4B_CC_ITEM, "  if (o0 >= valid || column) return;")],
+    "column items alone": [(_K4B_CC_ITEM, "  if (o0 >= valid || !column) return;")],
     # mutants: each must fail the slow cases
     "mutant: key tiles 2+ below the row tile dropped": [
         ("for (int j0 = 0; j0 < i_end; j0 += kT)",
@@ -126,7 +189,8 @@ SETS["k4b"] = ("ssd_chunk_bwd.cu", {
     "mutant: state terms dropped": [
         ("v[k] * expf(cs_last - cs[o0 + key]) : 0.f;", "0.f : 0.f;"),
         ("ab[k] = fmaf(expf(cs_last - cs[o0 + key]), v[k], ab[k]);", "(void)v;")],
-}, [(torch.bfloat16, "fast"), (torch.bfloat16, "slow"), (torch.float32, "slow")],
+}, [(torch.bfloat16, "fast", 8, 512, 1), (torch.bfloat16, "slow", 8, 512, 1),
+    (torch.float32, "slow", 8, 512, 1)],
     {"no products", "no scores", "no state terms", "no staging after the first tile",
      "row items alone", "column items alone", "mutant: key tiles 2+ below the row tile dropped",
      "mutant: state terms dropped"})
@@ -285,13 +349,17 @@ def k4_cases(lib, cases, dev, gen):
     return rows
 
 
-def k4b_cases(lib, cases, dev, gen):
-    """K4b at Mamba2-370m's train shape (8 x 512 tokens, 32 heads of 64, one
-    group of N = 128, chunk 256) through its C entry point, at fast and
-    slow decays: dx, da, dB and dC against ``ssd_chunk_op_bwd_ref`` on the
+def k4b_cases(lib, cases, dev, gen, route=1):
+    """K4b through its C entry point on route 1 (the tensor cores; k4b) or
+    0 (the CUDA cores; k4b-cuda-cores), with Mamba2-370m's heads (32 of 64,
+    N = 128, chunk 256): the train shape (8 x 512 tokens, one group) and a
+    sequence of 384 with two groups and a ragged one of 300, at fast and
+    slow decays. dx, da, dB and dC against ``ssd_chunk_op_bwd_ref`` on the
     same inputs and cotangents, each divided by that gradient's largest
     magnitude, so the errors printed are relative to it and the tolerance
-    is x's dtype's (bf16 2e-2, fp32 1e-4), as in ``chip_smoke.py``."""
+    is x's dtype's (bf16 2e-2, fp32 1e-4), as in ``chip_smoke.py``. The
+    scratch is what the variant's own library asks for: its slicing and
+    its parts may differ from the kernel as built."""
     from chip_smoke import TOL, _ssd_inputs
     from repro_torch.kernels import ssd_chunk_op_bwd_ref, ssd_chunk_op_ref
     from repro_torch.kernels.build import _SIGNATURES
@@ -300,24 +368,31 @@ def k4b_cases(lib, cases, dev, gen):
     fn = lib.ssd_chunk_bwd_launch
     fn.argtypes = _SIGNATURES["ssd_chunk_bwd_launch"]
     fn.restype = _I
-    b, l, h, g, Q = 8, 512, 32, 1, 256
+    lib.ssd_chunk_bwd_scratch_floats.argtypes = _SIGNATURES["ssd_chunk_bwd_scratch_floats"]
+    lib.ssd_chunk_bwd_scratch_floats.restype = _L
+    h, Q = 32, 256
     rows = []
-    for dtype, decay in cases:
+    for dtype, decay, b, l, g in cases:
         x, a, B, C = _ssd_inputs(dev, gen, dtype, l, h, g, decay, batch=b)
         y, states, decays = ssd_chunk_op_ref(x, a, B, C, Q)
+        N = B.shape[-1]
         dy = torch.randn(y.shape, device=dev, generator=gen).to(dtype)
         dst, dde = torch.randn_like(states), torch.randn_like(decays)
         dx, da = torch.empty_like(x), torch.empty_like(a)
-        dBh, dCh = (torch.empty(b, l, h, B.shape[-1], device=dev) for _ in range(2))
-        scratch = torch.empty(3 * b * h * states.shape[2] * Q, device=dev)
-        ts = (x, a, B, C, dy, dx, da, dBh, dCh)
+        if route:                      # summed over a group in the kernel, in x's dtype
+            dBo, dCo = (torch.empty(b, l, g, N, device=dev, dtype=dtype) for _ in range(2))
+        else:                          # per-head fp32 partials, summed here
+            dBo, dCo = (torch.empty(b, l, h, N, device=dev) for _ in range(2))
+        scratch = torch.empty(lib.ssd_chunk_bwd_scratch_floats(route, b, h, g, l, Q, x.shape[-1],
+                                                               N), device=dev)
+        ts = (x, a, B, C, dy, dx, da, dBo, dCo)
 
-        def run(x=x, a=a, B=B, C=C, dy=dy, dst=dst, dde=dde, dx=dx, da=da, dBh=dBh,
-                dCh=dCh, scratch=scratch, ts=ts, dtype=dtype):
+        def run(x=x, a=a, B=B, C=C, dy=dy, dst=dst, dde=dde, dx=dx, da=da, dBo=dBo,
+                dCo=dCo, scratch=scratch, ts=ts, dtype=dtype, b=b, l=l, g=g):
             rc = fn(x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
                     dst.data_ptr(), dde.data_ptr(), dx.data_ptr(), da.data_ptr(),
-                    dBh.data_ptr(), dCh.data_ptr(), scratch.data_ptr(), DTYPES[dtype], b, h,
-                    g, l, Q, x.shape[-1], B.shape[-1],
+                    dBo.data_ptr(), dCo.data_ptr(), scratch.data_ptr(), DTYPES[dtype], route,
+                    b, h, g, l, Q, x.shape[-1], N,
                     *(st for t in ts for st in t.stride()[:3]),
                     torch.cuda.current_stream().cuda_stream)
             if rc:
@@ -325,9 +400,10 @@ def k4b_cases(lib, cases, dev, gen):
 
         run()
         want = ssd_chunk_op_bwd_ref(x, a, B, C, Q, dy, dst, dde)
-        got = (dx, da) + tuple(t.reshape(b, l, g, h // g, -1).sum(3) for t in (dBh, dCh))
+        got = (dx, da) + ((dBo, dCo) if route else tuple(
+            t.reshape(b, l, g, h // g, -1).sum(3) for t in (dBo, dCo)))
         scale = [w.float().abs().max() for w in want]
-        rows.append((f"{str(dtype)[6:]} l={l} {decay} (dx da dB dC)",
+        rows.append((f"{str(dtype)[6:]} b={b} l={l} g={g} {decay} (dx da dB dC)",
                      tuple(o.float() / s for o, s in zip(got, scale)),
                      tuple(w.float() / s for w, s in zip(want, scale)), run, lambda: None,
                      [TOL[dtype]] * 4))
@@ -412,6 +488,7 @@ def main(argv=None) -> int:
     print(f"{torch.cuda.get_device_name(0)} | {smi.stdout.strip()} | set {args.set}",
           flush=True)
     make = {"k3": k3_cases, "k2": k2_cases, "k4": k4_cases, "k4b": k4b_cases,
+            "k4b-cuda-cores": functools.partial(k4b_cases, route=0),
             "k3b": k3b_cases}[args.set]
     library_done = set()
     failed = False

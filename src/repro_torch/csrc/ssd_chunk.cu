@@ -348,38 +348,6 @@ struct TcArgs {
   int order[kMaxRowTiles + 1];     // item kinds, heaviest first: row tile, or n_it = state
 };
 
-// (v0, v1) as NP packed bf16 pairs, parts[k][t][r], whose sum is (v0, v1)
-// to 8 more bits per part: each part is the bf16 rounding of what the
-// parts before it leave.
-template <int NP>
-__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t (&parts)[NP][4][4],
-                                           int t, int r) {
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-    parts[k][t][r] = *reinterpret_cast<const uint32_t*>(&h);
-    v0 -= __low2float(h);
-    v1 -= __high2float(h);
-  }
-}
-
-// Keep a register A operand's registers live up to the wait that ends the
-// wgmma reading them, so the compiler does not reuse them while it runs.
-template <int NP>
-__device__ __forceinline__ void fence_operand(uint32_t (&parts)[NP][4][4]) {
-#pragma unroll
-  for (int k = 0; k < NP; ++k)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(parts[k][t][r])::"memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
-}
-
 // Block `idx`'s item: its kind (a row tile, or n_it for a state item) and
 // its index within the kind, walking the kinds in the host's order. Every
 // kind has one item per (batch, chunk, head).

@@ -4,8 +4,9 @@ its plain PyTorch version (``ref.py``) beside the wrapper that launches it.
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 for a CPU tensor, and for a meta tensor (the dry-run's route: shapes only,
 nothing launched); any other device raises. Each keeps a plain integer ``launches`` count, raised by
-one where the kernel is launched and nowhere else; K4 also counts its
-launches by route (``ssd_chunk.route_launches``). K3 carries a gradient
+one where the kernel is launched and nowhere else; K4 and K4b also count
+their launches by route (``ssd_chunk.route_launches``,
+``ssd_chunk_bwd.route_launches``). K3 carries a gradient
 through ``FlashAttentionFn`` (its backward is K3b), K4 through
 ``SSDChunkFn`` (its backward is K4b); a launch that autograd would record
 raises.
@@ -65,12 +66,15 @@ def launch_counts() -> Dict[str, int]:
 
 
 def route_counts() -> Dict[str, int]:
-    """K4's launches by route, as ``ssd_chunk:<route>``."""
-    return {f"ssd_chunk:{r}": n for r, n in ssd_chunk.route_launches.items()}
+    """K4's and K4b's launches by route, as ``ssd_chunk:<route>`` and
+    ``ssd_chunk_bwd:<route>``."""
+    return {f"{fn.__name__}:{r}": n for fn in (ssd_chunk, ssd_chunk_bwd)
+            for r, n in fn.route_launches.items()}
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    for r in ssd_chunk.route_launches:
-        ssd_chunk.route_launches[r] = 0
+    for fn in (ssd_chunk, ssd_chunk_bwd):
+        for r in fn.route_launches:
+            fn.route_launches[r] = 0

@@ -51,8 +51,12 @@ _SIGNATURES = {
         [_P] * 4 + [_I, _P] + [_I] * 6 + [_L] * 10 + [_I, _F, _P]
     ),
     "ssd_chunk_launch": [_P] * 7 + [_I] * 9 + [_L] * 15 + [_P],
-    "ssd_chunk_bwd_launch": [_P] * 12 + [_I] * 8 + [_L] * 27 + [_P],
+    "ssd_chunk_bwd_launch": [_P] * 12 + [_I] * 9 + [_L] * 27 + [_P],
+    "ssd_chunk_bwd_scratch_floats": [_I] * 8,
+    "ssd_chunk_bwd_head_slices": [_I] * 6,
 }
+# every other entry point returns an int: an error code, or a count of head slices
+_RESTYPES = {"ssd_chunk_bwd_scratch_floats": _L}
 
 
 def _nvcc() -> str:
@@ -129,7 +133,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -7,8 +7,9 @@ past it as the JAX model's zero padding), and an initial state.
 
 ``ssd_chunk_op`` goes through ``SSDChunkFn`` on every device wherever
 autograd records the call: the forward is K4 on the card and the plain
-version on the CPU; the backward is K4b (``csrc/ssd_chunk_bwd.cu``) on
-the card and its plain version, ``ssd_chunk_op_bwd_ref``, on the CPU.
+version on the CPU; the backward is K4b (``csrc/ssd_chunk_bwd.cu``, on
+its default route) on the card and its plain version,
+``ssd_chunk_op_bwd_ref``, on the CPU.
 The inter-chunk scan around it is PyTorch ops, which autograd
 differentiates. The JAX package has no backward kernel: XLA
 differentiates ``ssd_chunked``."""
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from .ref import ssd_chunk_bwd_f32, ssd_chunk_ref
-from .ssd_chunk import check_inputs, launch, launch_bwd
+from .ssd_chunk import bwd_route, check_inputs, launch, launch_bwd
 
 
 def _check(x, a, B, C, chunk: int) -> None:
@@ -58,32 +59,42 @@ def _forward(xbar, a, B, C, chunk: int, which: Optional[str]):
     return y, states, decay
 
 
-def ssd_chunk_op_bwd(xbar, a, B, C, chunk: int, dy, dstates, ddecay):
+def ssd_chunk_op_bwd(xbar, a, B, C, chunk: int, dy, dstates, ddecay, *,
+                     which: Optional[str] = None):
     """The gradient of ``ssd_chunk_op``'s (y_diag, states, out_decay)
     with respect to (xbar, a, B, C): K4b on the card, the plain version
-    (``ssd_chunk_op_bwd_ref``) on the CPU and on meta. dx, dB and dC come
-    back in the inputs' dtype, da in fp32. K4b writes each head's dB and dC
-    as fp32 partials, summed here over the heads of a group."""
+    (``ssd_chunk_op_bwd_ref``) on the CPU and on meta whatever ``which``
+    says. dx, dB and dC come back in the inputs' dtype, da in fp32.
+    ``which`` names a K4b route (``ssd_chunk.bwd_route``'s default
+    otherwise). The tensor-core kernel sums a group's heads of dB and dC
+    itself; the CUDA-core kernel writes each head's as fp32 partials,
+    summed here over the heads of a group."""
     _check(xbar, a, B, C, chunk)
     if xbar.device.type in ("cpu", "meta"):
         return ssd_chunk_op_bwd_ref(xbar, a, B, C, chunk, dy, dstates, ddecay)
     b, l, h, p = xbar.shape
     g, n = B.shape[2], B.shape[3]
     nc = -(-l // chunk)
+    which = bwd_route(xbar.dtype, chunk, p, n, which)
     a = a.float()
     dy = dy.to(xbar.dtype)
     if dy.stride(-1) != 1:
         dy = dy.contiguous()
     dstates, ddecay = dstates.float().contiguous(), ddecay.float().contiguous()
+    if dstates.data_ptr() % 16:          # the tensor cores read it 16 bytes at a time
+        dstates = dstates.clone()
     dx = torch.empty((b, l, h, p), dtype=xbar.dtype, device=xbar.device)
     da = torch.empty((b, l, h), dtype=torch.float32, device=xbar.device)
-    dBh, dCh = (torch.empty((b, l, h, n), dtype=torch.float32, device=xbar.device)
-                for _ in range(2))
-    launch_bwd(xbar, a, B, C, dy, dstates, ddecay, dx, da, dBh, dCh,
+    per_head = which == "cuda_cores"
+    dB, dC = (torch.empty((b, l, h if per_head else g, n),
+                          dtype=torch.float32 if per_head else B.dtype, device=xbar.device)
+              for _ in range(2))
+    launch_bwd(xbar, a, B, C, dy, dstates, ddecay, dx, da, dB, dC,
                (b, h, g, l, chunk, p, n),
-               tuple(s for t in (xbar, a, B, C, dy, dx, da, dBh, dCh)
-                     for s in t.stride()[:3]))
-    dB, dC = (t.reshape(b, l, g, h // g, n).sum(3).to(B.dtype) for t in (dBh, dCh))
+               tuple(s for t in (xbar, a, B, C, dy, dx, da, dB, dC)
+                     for s in t.stride()[:3]), which)
+    if per_head:
+        dB, dC = (t.reshape(b, l, g, h // g, n).sum(3).to(B.dtype) for t in (dB, dC))
     return dx, da, dB, dC
 
 

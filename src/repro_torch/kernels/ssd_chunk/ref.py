@@ -62,6 +62,50 @@ def ssd_chunk_bwd_f32(xbar, a, B, C, dy, dstates, ddecay):
     return dx, da, dB, dC
 
 
+def bf16_parts(v: torch.Tensor, parts: int) -> torch.Tensor:
+    """``v`` (fp32) as the sum of ``parts`` bf16 values, each the bf16
+    rounding of what the ones before it leave: what the tensor-core K4b
+    hands the tensor cores for a value it builds in registers."""
+    out, rest = torch.zeros_like(v), v.float()
+    for _ in range(parts):
+        part = rest.to(torch.bfloat16).float()
+        out, rest = out + part, rest - part
+    return out
+
+
+def ssd_chunk_bwd_tc_emulated(xbar, a, B, C, dy, dstates, ddecay,
+                              parts: Tuple[int, int, int]):
+    """A plain emulation of the tensor-core K4b's arithmetic, for the
+    tests: x, B, C and dy rounded to bf16 (the kernel's operands), S = C
+    B^T and dM = dy x^T exact in fp32, M = S o L, dS = dM o L and dstates
+    rounded to ``parts`` = (M's, dS's, dstates') bf16 parts before the
+    products they enter (dx's, dC's and dB's, the state terms), fp32 sums;
+    G = dS o S and the exponents stay fp32, as in the kernel. Returns
+    (dx, da, dB, dC) in fp32, the layout of ``ssd_chunk_bwd_f32``."""
+    pm, pds, pst = parts
+    Q = xbar.shape[-2]
+    x, B, C, dy = (t.to(torch.bfloat16).float() for t in (xbar, B, C, dy))
+    cs = torch.cumsum(a.float(), dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
+    L = torch.where(mask, torch.exp(torch.where(mask, diff, 0.0)), 0.0)
+    S = torch.einsum("bcin,bcjn->bcij", C, B)
+    dS = torch.einsum("bcip,bcjp->bcij", dy, x) * L
+    Mq, dSq, dq = bf16_parts(S * L, pm), bf16_parts(dS, pds), bf16_parts(dstates, pst)
+    w = torch.exp(cs[..., -1:] - cs)
+    t1 = torch.einsum("bcpn,bcjn->bcjp", dq, B)                # B_j dstates^T
+    dx = torch.einsum("bcij,bcip->bcjp", Mq, dy) + w[..., None] * t1
+    dC = torch.einsum("bcij,bcjn->bcin", dSq, B)
+    dB = (torch.einsum("bcij,bcin->bcjn", dSq, C)
+          + w[..., None] * torch.einsum("bcpn,bcjp->bcjn", dq, x))
+    G = dS * S
+    u = w * (x * t1).sum(-1)
+    dcs = G.sum(-1) - G.sum(-2) - u + ddecay.float() * torch.exp(cs)
+    dcs[..., -1] += u.sum(-1)
+    da = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+    return dx, da, dB, dC
+
+
 def ssd_chunk_bwd_ref(
     xbar: torch.Tensor,      # (BH, nc, Q, P)
     a: torch.Tensor,         # (BH, nc, Q)

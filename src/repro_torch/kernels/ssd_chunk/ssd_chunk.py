@@ -13,10 +13,15 @@ for fp32 and every other shape. A call may name either; a route that
 cannot take a shape raises. Neither hands a call to the other or to the
 plain version.
 
-K4b (``csrc/ssd_chunk_bwd.cu``, ``launch_bwd``) is K4's gradient, on the
-CUDA cores for both dtypes and every shape the CUDA-core K4 takes;
-``ssd_chunk_bwd`` maps this layout onto ``ops.ssd_chunk_op_bwd``, its
-one launching wrapper. A launch counts in ``ssd_chunk_bwd.launches``."""
+K4b (``csrc/ssd_chunk_bwd.cu``, ``launch_bwd``) is K4's gradient, with
+the same two routes by the same rule (``bwd_route``): the tensor-core
+kernel (``wgmma`` products from register-built operands in bf16 parts,
+a group's heads summed inside the kernel) where ``tensor_cores_take``
+holds, the CUDA-core kernel (fp32, per-head partials of dB and dC that
+``ops.ssd_chunk_op_bwd`` sums) elsewhere. ``ssd_chunk_bwd`` maps this
+layout onto ``ops.ssd_chunk_op_bwd``, its one launching wrapper. A launch
+counts in ``ssd_chunk_bwd.launches`` and, by route, in
+``ssd_chunk_bwd.route_launches``."""
 from __future__ import annotations
 
 import math
@@ -34,6 +39,7 @@ MAX_P = 128              # 64 y rows over THREADS // P threads: <= MAX_ACC each
 MAX_N = THREADS
 TC_MAX_Q = 1024          # the tensor-core kernel's row tiles: at most 16 of 64
 ROUTES = {"cuda_cores": 0, "tensor_cores": 1}
+BWD_TC_PARTS = (2, 2, 2)  # bf16 parts of M, dS and dstates (csrc/ssd_chunk_bwd.cu)
 
 
 def tensor_cores_take(dtype: torch.dtype, Q: int, P: int, N: int) -> bool:
@@ -46,6 +52,25 @@ def tensor_cores_take(dtype: torch.dtype, Q: int, P: int, N: int) -> bool:
             and 16 <= N <= 256 and P % 16 == 0 and 16 <= P <= 128)
 
 
+def _take(name: str, dtype: torch.dtype, Q: int, P: int, N: int,
+          which: Optional[str]) -> str:
+    if which is None:
+        which = "tensor_cores" if tensor_cores_take(dtype, Q, P, N) else "cuda_cores"
+    _check_route(name, dtype, Q, P, N, which)
+    return which
+
+
+def _check_route(name: str, dtype: torch.dtype, Q: int, P: int, N: int, which: str) -> None:
+    if which not in ROUTES:
+        raise ValueError(f"{name}: unknown route {which!r}")
+    if which == "tensor_cores" and not tensor_cores_take(dtype, Q, P, N):
+        raise ValueError(
+            f"{name}: the tensor cores take bf16 with Q % 64 == 0, Q <= "
+            f"{TC_MAX_Q}, N and P multiples of 16, 16 <= N <= 256, P <= 128; "
+            f"got {dtype} Q={Q} P={P} N={N}"
+        )
+
+
 def route(dtype: torch.dtype, Q: int, P: int, N: int, which: Optional[str] = None) -> str:
     """The K4 kernel a call runs on: ``which`` where the caller names one,
     else the tensor cores wherever ``tensor_cores_take`` holds (Mamba2's and
@@ -56,17 +81,17 @@ def route(dtype: torch.dtype, Q: int, P: int, N: int, which: Optional[str] = Non
     check, so ``chip_smoke.py`` holds every served call to the plain
     version on the same inputs instead, and keeps the logits check on the
     CUDA-core kernel, which repeats the plain version's fp32 arithmetic."""
-    if which is None:
-        which = "tensor_cores" if tensor_cores_take(dtype, Q, P, N) else "cuda_cores"
-    if which not in ROUTES:
-        raise ValueError(f"ssd_chunk: unknown route {which!r}")
-    if which == "tensor_cores" and not tensor_cores_take(dtype, Q, P, N):
-        raise ValueError(
-            f"ssd_chunk: the tensor cores take bf16 with Q % 64 == 0, Q <= "
-            f"{TC_MAX_Q}, N and P multiples of 16, 16 <= N <= 256, P <= 128; "
-            f"got {dtype} Q={Q} P={P} N={N}"
-        )
-    return which
+    return _take("ssd_chunk", dtype, Q, P, N, which)
+
+
+def bwd_route(dtype: torch.dtype, Q: int, P: int, N: int, which: Optional[str] = None) -> str:
+    """The K4b kernel a call runs on, by K4's rule: ``which`` where the
+    caller names one, else the tensor cores wherever ``tensor_cores_take``
+    holds (Mamba2-370m's bf16 train shape, jamba's N = 16) and the CUDA
+    cores elsewhere (fp32, such as ``launch.train``'s one ragged chunk of
+    128, and bf16 shapes the tensor cores do not take, such as the reduced
+    models' chunk of 32). A named route that cannot take the call raises."""
+    return _take("ssd_chunk_bwd", dtype, Q, P, N, which)
 
 
 def check_cuda_cores(name: str, P: int, N: int) -> None:
@@ -132,28 +157,39 @@ def launch(x, a, B, C, y, states, decay, dims: Sequence[int],
 
 
 def launch_bwd(x, a, B, C, dy, dstates, ddecay, dx, da, dB, dC,
-               dims: Sequence[int], strides: Sequence[int]) -> None:
-    """Launch K4b. dims = (batch, H, G, L, Q, P, N); strides in elements,
-    (b, t, h or g) of x, a, B, C, dy, dx, da, dB, dC in that order (27).
-    x, B, C, dy and dx share a dtype; a, da, dstates (batch, H, nc, P, N),
-    ddecay (batch, H, nc, Q) and the per-head partials dB, dC (batch, L, H,
-    N) are fp32. The last dim of x, B, C, dy, dx, dB and dC is contiguous,
-    dstates and ddecay are contiguous."""
+               dims: Sequence[int], strides: Sequence[int], which: str) -> None:
+    """Launch K4b on route ``which``, which the caller has chosen
+    (``bwd_route``) and which must take the call. dims = (batch,
+    H, G, L, Q, P, N); strides in elements, (b, t, h
+    or g) of x, a, B, C, dy, dx, da, dB, dC in that order (27). x, B, C, dy
+    and dx share a dtype; a, da, dstates (batch, H, nc, P, N) and ddecay
+    (batch, H, nc, Q) are fp32. On the CUDA cores dB and dC are per-head
+    fp32 partials (batch, L, H, N), summed by the caller; on the tensor
+    cores they are (batch, L, G, N) in x's dtype, a group's heads summed in
+    the kernel from the partials of a few slices of them (the C source's
+    ``head_slices``).
+    The last dim of x, B, C, dy, dx, dB and dC is contiguous, dstates and
+    ddecay are contiguous."""
     batch, H, G, L, Q, P, N = dims
     if G < 1 or H % G:
         raise ValueError(f"ssd_chunk_bwd: need H % G == 0, got H={H} G={G}")
     if not 1 <= Q <= TC_MAX_Q:
         raise ValueError(f"ssd_chunk_bwd: the kernel takes chunks of 1 to {TC_MAX_Q}, "
                          f"got {Q}")
-    check_cuda_cores("ssd_chunk_bwd", P, N)
+    _check_route("ssd_chunk_bwd", x.dtype, Q, P, N, which)
+    if which == "cuda_cores":
+        check_cuda_cores("ssd_chunk_bwd", P, N)
     tensors = (x, a, B, C, dy, dstates, ddecay, dx, da, dB, dC)
     if any(t.device != x.device for t in tensors):
         raise ValueError("ssd_chunk_bwd: every tensor must be on one device")
     if x.dtype not in DTYPES or any(t.dtype != x.dtype for t in (B, C, dy, dx)):
         raise TypeError(f"ssd_chunk_bwd: x, B, C, dy, dx must share a dtype in "
                         f"{list(DTYPES)}")
-    if any(t.dtype != torch.float32 for t in (a, dstates, ddecay, da, dB, dC)):
-        raise TypeError("ssd_chunk_bwd: a, dstates, ddecay, da, dB, dC must be fp32")
+    grad_dtype = torch.float32 if which == "cuda_cores" else x.dtype
+    if (any(t.dtype != torch.float32 for t in (a, dstates, ddecay, da))
+            or dB.dtype != grad_dtype or dC.dtype != grad_dtype):
+        raise TypeError(f"ssd_chunk_bwd: a, dstates, ddecay, da must be fp32, dB and dC "
+                        f"{grad_dtype} on the {which.replace('_', ' ')}")
     nc = -(-L // Q)
     if (dstates.shape != (batch, H, nc, P, N) or ddecay.shape != (batch, H, nc, Q)
             or not (dstates.is_contiguous() and ddecay.is_contiguous())):
@@ -163,20 +199,28 @@ def launch_bwd(x, a, B, C, dy, dstates, ddecay, dx, da, dB, dC,
     if any(t.stride(-1) != 1 for t in (x, B, C, dy, dx, dB, dC)):
         raise ValueError("ssd_chunk_bwd: the last dim of x, B, C, dy, dx, dB, dC "
                          "must be contiguous")
+    if which == "tensor_cores" and dstates.data_ptr() % 16:
+        raise ValueError("ssd_chunk_bwd: dstates must start on 16 bytes")
     if batch * H * L == 0:
         return
     # per position of each (batch, head, chunk): the row and column sums of
-    # dM o M and the state term u, which the kernel's last pass turns into da
-    scratch = torch.empty((3, batch * H * nc * Q), dtype=torch.float32, device=x.device)
+    # dM o M and the state term u, which the kernel's last pass turns into
+    # da; on the tensor cores then the slices' partials of dB and dC and
+    # dstates in bf16 parts
+    lib = build.library()
+    scratch = torch.empty(lib.ssd_chunk_bwd_scratch_floats(ROUTES[which], batch, H, G, L, Q, P, N),
+                          dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        rc = build.library().ssd_chunk_bwd_launch(
+        rc = lib.ssd_chunk_bwd_launch(
             x.data_ptr(), a.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
             dstates.data_ptr(), ddecay.data_ptr(), dx.data_ptr(), da.data_ptr(),
             dB.data_ptr(), dC.data_ptr(), scratch.data_ptr(), DTYPES[x.dtype],
-            batch, H, G, L, Q, P, N, *strides, build.stream_handle(x),
+            ROUTES[which], batch, H, G, L, Q, P, N, *strides,
+            build.stream_handle(x),
         )
-    build.check(rc, "ssd_chunk_bwd")
+    build.check(rc, f"ssd_chunk_bwd ({which})")
     ssd_chunk_bwd.launches += 1
+    ssd_chunk_bwd.route_launches[which] += 1
 
 
 def ssd_chunk(
@@ -246,3 +290,4 @@ def ssd_chunk_bwd(
 ssd_chunk.launches = 0
 ssd_chunk.route_launches = dict.fromkeys(ROUTES, 0)   # launches by route
 ssd_chunk_bwd.launches = 0
+ssd_chunk_bwd.route_launches = dict.fromkeys(ROUTES, 0)   # launches by route

@@ -25,7 +25,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import MMAConfig, make_functional_engine, \
     multipath_device_get, multipath_device_put
 from repro_torch.kernels import build
-from repro_torch.kernels.ssd_chunk.ssd_chunk import route, tensor_cores_take
+from repro_torch.kernels.ssd_chunk.ssd_chunk import bwd_route, route, tensor_cores_take
 from repro_torch.kernels import (
     decode_attention,
     decode_attention_op,
@@ -802,11 +802,18 @@ def test_kernels_without_a_gradient_refuse_one_on_the_card(dev):
         flash_attention(qh, kh, kh)
 
 
-def _ssd_grads_match_plain(dev, dtype, b, l, h, p, n, groups, chunk, decay, which):
-    """K4 forward on route ``which`` (the default when None), then K4b,
-    through SSDChunkFn: dx, da, dB and dC against ``ssd_chunk_op_bwd_ref``
-    on the same inputs and cotangents, each relative to that gradient's
-    largest magnitude, at x's dtype's tolerance; one K4b launch."""
+def _ssd_grads_match_plain(dev, dtype, b, l, h, p, n, groups, chunk, decay, which,
+                           bwd_which=None):
+    """K4 forward on route ``which`` (the default when None), then K4b on
+    route ``bwd_which`` (its default when None), through SSDChunkFn: dx,
+    da, dB and dC against ``ssd_chunk_op_bwd_ref`` on the same inputs and
+    cotangents, each relative to that gradient's largest magnitude, at x's
+    dtype's tolerance; one K4b launch, on the route ``bwd_route`` names."""
+    import functools
+    import importlib
+    from unittest import mock
+
+    ops = importlib.import_module("repro_torch.kernels.ssd_chunk.ops")
     x, a, B, C = _ssd_inputs(dev, dtype, b, l, h, p, n, groups, decay)
     g = torch.Generator(device=dev).manual_seed(3)
     with torch.no_grad():
@@ -815,14 +822,21 @@ def _ssd_grads_match_plain(dev, dtype, b, l, h, p, n, groups, chunk, decay, whic
     dst, dde = (torch.randn(s, device=dev, generator=g) for s in shapes[1:])
     leaves = [t.clone().requires_grad_(True) for t in (x, a, B, C)]
     before = ssd_chunk_bwd.launches
-    got = torch.autograd.grad(ssd_chunk_op(*leaves, chunk, which=which), leaves, (dy, dst, dde))
+    took = bwd_route(dtype, chunk, p, n, bwd_which)
+    by_route = dict(ssd_chunk_bwd.route_launches)
+    with mock.patch.object(ops, "ssd_chunk_op_bwd",
+                           functools.partial(ops.ssd_chunk_op_bwd, which=bwd_which)):
+        got = torch.autograd.grad(ssd_chunk_op(*leaves, chunk, which=which), leaves,
+                                  (dy, dst, dde))
     assert ssd_chunk_bwd.launches == before + 1
+    assert ssd_chunk_bwd.route_launches[took] == by_route[took] + 1
     want = ssd_chunk_op_bwd_ref(x, a, B, C, chunk, dy, dst, dde)
     for gt, w in zip(got, want):
         assert gt.dtype == w.dtype and gt.shape == w.shape and torch.isfinite(gt).all()
         assert _rel_to_scale(gt, w) <= TOL[dtype]["atol"]
 
 
+@pytest.mark.parametrize("bwd_which", ["cuda_cores", None])
 @pytest.mark.parametrize("which", ["cuda_cores", None])
 @pytest.mark.parametrize("decay", ["fast", "slow"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -833,14 +847,20 @@ def _ssd_grads_match_plain(dev, dtype, b, l, h, p, n, groups, chunk, decay, whic
     (2, 100, 4, 32, 16, 2, 32),      # reduced widths, chunk 32
     (1, 120, 4, 20, 12, 1, 50),      # a chunk that is no multiple of 32
     (1, 300, 2, 32, 256, 1, 128),    # N = 256 (the wide instance)
+    (1, 512, 32, 64, 16, 1, 256),    # jamba's N = 16
 ])
-def test_ssd_chunk_bwd_matches_plain(dev, b, l, h, p, n, groups, chunk, dtype, decay, which):
-    _ssd_grads_match_plain(dev, dtype, b, l, h, p, n, groups, chunk, decay, which)
+def test_ssd_chunk_bwd_matches_plain(dev, b, l, h, p, n, groups, chunk, dtype, decay, which,
+                                     bwd_which):
+    """Each K4 forward route, then each K4b route (the default: the tensor
+    cores for the bf16 shapes they take, else the CUDA cores)."""
+    _ssd_grads_match_plain(dev, dtype, b, l, h, p, n, groups, chunk, decay, which, bwd_which)
 
 
+@pytest.mark.parametrize("which", [None, "cuda_cores"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_chunk_bwd_gives_the_same_bits_twice(dev, dtype):
-    """No atomics: the same inputs give the same bits on every call."""
+def test_ssd_chunk_bwd_gives_the_same_bits_twice(dev, dtype, which):
+    """No atomics on either route (the default is the tensor cores in
+    bf16): the same inputs give the same bits on every call."""
     x, a, B, C = _ssd_inputs(dev, dtype, 8, 512, 32, 64, 128, 1, "slow")
     with torch.no_grad():
         y, st, de = ssd_chunk_op(x, a, B, C, 256)
@@ -848,10 +868,43 @@ def test_ssd_chunk_bwd_gives_the_same_bits_twice(dev, dtype):
     cot = (torch.randn(y.shape, device=dev, generator=g).to(dtype),
            torch.randn(st.shape, device=dev, generator=g),
            torch.randn(de.shape, device=dev, generator=g))
-    first = ssd_chunk_op_bwd(x, a, B, C, 256, *cot)
-    second = ssd_chunk_op_bwd(x, a, B, C, 256, *cot)
+    first = ssd_chunk_op_bwd(x, a, B, C, 256, *cot, which=which)
+    second = ssd_chunk_op_bwd(x, a, B, C, 256, *cot, which=which)
     for u, v in zip(first, second):
         assert torch.equal(u.view(-1).view(torch.uint8), v.view(-1).view(torch.uint8))
+
+
+def test_ssd_chunk_bwd_tensor_core_kernel_has_hgmma(dev):
+    """K4b's tensor-core functions' SASS carries wgmma (HGMMA) instructions
+    and no warp-level mma (HMMA)."""
+    counts = build.sass_counts("ssd_chunk_bwd_tc", ("HGMMA", "HMMA"))
+    if counts is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    assert counts and all(c["HGMMA"] > 0 and c["HMMA"] == 0 for c in counts.values()), counts
+
+
+def test_ssd_chunk_bwd_default_route_is_the_tensor_cores(dev):
+    """Mamba2-370m's bf16 train shape takes K4b's tensor-core kernel
+    without naming it, one launch on that route, within 2e-2 of each
+    gradient's max."""
+    cfg = get_config("mamba2-370m")
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    assert bwd_route(cfg.dtype, cfg.ssm_chunk, p, n) == "tensor_cores"
+    _ssd_grads_match_plain(dev, cfg.dtype, 8, 512, h, p, n, cfg.ssm_groups, cfg.ssm_chunk,
+                           "slow", None)
+
+
+@pytest.mark.parametrize("dtype,chunk", [(torch.float32, 256), (torch.bfloat16, 32)])
+def test_ssd_chunk_bwd_forced_tensor_cores_refuse_what_they_cannot_take(dev, dtype, chunk):
+    """fp32, and a chunk of 32, on the tensor cores: ValueError before
+    anything is launched."""
+    x, a, B, C = _ssd_inputs(dev, dtype, 1, 256, 4, 64, 128, 1, "fast")
+    nc = -(-256 // chunk)
+    before = ssd_chunk_bwd.launches
+    with pytest.raises(ValueError, match="tensor cores"):
+        ssd_chunk_op_bwd(x, a, B, C, chunk, x, torch.zeros(1, 4, nc, 64, 128, device=dev),
+                         torch.zeros(1, 4, nc, chunk, device=dev), which="tensor_cores")
+    assert ssd_chunk_bwd.launches == before
 
 
 def test_ssd_chunk_bwd_fused_layout_matches_plain(dev):

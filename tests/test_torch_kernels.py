@@ -43,6 +43,7 @@ from repro_torch.kernels import (
     relay_assemble,
     relay_assemble_ref,
     ssd_chunk,
+    ssd_chunk_bwd,
     ssd_chunk_op,
 )
 
@@ -397,8 +398,10 @@ def test_ssd_route_counts_reset_with_the_launch_counts():
     from repro_torch.kernels import reset_launch_counts, route_counts
 
     ssd_chunk.route_launches["tensor_cores"] += 3
+    ssd_chunk_bwd.route_launches["tensor_cores"] += 2
     reset_launch_counts()
-    assert route_counts() == {"ssd_chunk:cuda_cores": 0, "ssd_chunk:tensor_cores": 0}
+    assert route_counts() == {"ssd_chunk:cuda_cores": 0, "ssd_chunk:tensor_cores": 0,
+                              "ssd_chunk_bwd:cuda_cores": 0, "ssd_chunk_bwd:tensor_cores": 0}
 
 
 @pytest.mark.parametrize("which", [None, "cuda_cores", "tensor_cores"])

@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card and
 check it end to end.
 
-    python3 chip_smoke.py [--out DIR]
+    python3 chip_smoke.py [--out DIR] [--phases train,launch-train]
 
 Phases, one result line each:
   build      nvcc builds the kernels from src/repro_torch/csrc (or finds them built)
@@ -44,7 +44,9 @@ Phases, one result line each:
              cores, bf16's default, and the CUDA cores) after a forward on
              each K4 route, at Mamba2-370m's train shape (8 x 512 tokens),
              at l = 384 with two groups and a ragged l = 300, fast and slow
-             decays, bf16 and fp32, held to its plain version on the same
+             decays, bf16 and fp32, and at the widest bf16 shapes the
+             tensor cores take (chunks of 512 and 1024, heads of 128),
+             held to its plain version on the same
              inputs and cotangents, the same bits on a second call on each
              route, the HGMMA count of its tensor-core kernel, and timed
              (a row a route) beside its bound, the bytes the route moves,
@@ -53,11 +55,13 @@ Phases, one result line each:
              log-sum-exp, at the train shape, at rows that see no key
              (bf16 and fp32), at launch.train's fp32 shape and gemma's
              heads of 256 (both timed; the CUDA cores), and at windowed,
-             ragged, later-chunk, not-causal, D = 192, D = 80 and
-             negative-offset shapes, each held to autograd through the
-             plain version, the same bits on a second call, the served
-             forward (no lse) bit-equal, its loop bounds' Python mirror
-             against the mask, and the HGMMA count of its bf16 kernels
+             ragged, later-chunk, not-causal, D = 192, D = 80 (bf16 and
+             fp32), R = 2 and 8 and negative-offset shapes, each held to
+             autograd through the plain version, the same bits on a second
+             call, the served forward (no lse) bit-equal, its loop bounds'
+             Python mirror against the mask, and the HGMMA count of its bf16
+             kernels; a Mamba2 prefill continued from a state against one
+             prefill at full width (layer 0 of Mamba2-370m, 256 + 256 tokens)
   transfer   multipath_device_put / _get of a 1 GiB pinned bf16 tensor, bit-exact,
              over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
   serve      the dense path: TinyLlama-1.1B at full width in bf16 (random weights
@@ -640,11 +644,12 @@ def _flash_train(dev, gen, B=8, H=32, G=4, D=64, S=512):
     return {**forward, "max_abs_err": fwd_err, "backward": backward}
 
 
-def _bwd_bounds_hold(S, T, tile, causal, window, q_offset) -> bool:
+def _bwd_bounds_hold(S, T, own, walk, causal, window, q_offset) -> bool:
     """K3b's loop bounds as ``flash_attention.py`` mirrors them, against the
-    mask: the dK/dV pass's (query tile, key tile) visits hold every visible
-    pair and every (row, key < T) pair of a row that sees no key, the dQ
-    pass's every visible pair, each visit once."""
+    mask, for blocks that own ``own`` rows and walk tiles of ``walk``: the
+    dK/dV pass's (query tile, key tile) visits hold every visible pair and
+    every (row, key < T) pair of a row that sees no key, the dQ pass's
+    every visible pair, each visit once."""
     import importlib
 
     from repro_torch.kernels.flash_attention.ref import visible
@@ -653,15 +658,19 @@ def _bwd_bounds_hold(S, T, tile, causal, window, q_offset) -> bool:
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     seen = visible(S, T, **kw).numpy()
     needs = (seen | ~seen.any(1, keepdims=True), seen)
-    visits = ([(qt, kt) for kt in range(-(-T // tile))
-               for qt in k3.bwd_query_tiles(kt, tile, S, T, **kw)],
-              [(qt, kt) for qt in range(-(-S // tile))
-               for kt in k3.bwd_key_tiles(qt, tile, S, T, **kw)])
+    # (row slice, key slice) of each visit
+    visits = ([(slice(qt * walk, (qt + 1) * walk), slice(kt * own, (kt + 1) * own))
+               for kt in range(-(-T // own))
+               for qt in k3.bwd_query_tiles(kt, own, S, T, **kw, q_tile=walk)],
+              [(slice(qt * own, (qt + 1) * own), slice(kt * walk, (kt + 1) * walk))
+               for qt in range(-(-S // own))
+               for kt in k3.bwd_key_tiles(qt, own, S, T, **kw, k_tile=walk)])
     for need, vis in zip(needs, visits):
         covered = np.zeros_like(need)
-        for qt, kt in vis:
-            covered[qt * tile:(qt + 1) * tile, kt * tile:(kt + 1) * tile] = True
-        if len(vis) != len(set(vis)) or (need & ~covered).any():
+        keys = [(r.start, c.start) for r, c in vis]
+        for rows, cols in vis:
+            covered[rows, cols] = True
+        if len(keys) != len(set(keys)) or (need & ~covered).any():
             return False
     return True
 
@@ -672,12 +681,16 @@ def _flash_bwd_case(dev, gen, train):
     shape (the timing in ``train``, from ``_flash_train``), at rows that
     see no key (bf16 and fp32, two sizes), at launch.train's fp32 shape, at gemma's
     heads of 256 (the CUDA cores), and at windowed, ragged, later-chunk,
-    not-causal, D = 192 and negative-offset shapes. Each held to autograd
-    through the plain version on the same inputs and dO (2e-2 / 1e-4 of
-    each gradient's max), the same bits on a second call, the served
-    forward (no lse) bit-equal to the one that writes lse, and the loop
-    bounds' mirror against the mask. Then the HGMMA count of its bf16
-    kernels, and the fp32 call timed at launch.train's shape."""
+    not-causal, D = 192, negative-offset, fp32 D = 80 and R = 2 and 8 head
+    shapes. Each held to autograd through the plain version on the same
+    inputs and dO (2e-2 / 1e-4 of each gradient's max), the same bits on a
+    second call, the served forward (no lse) bit-equal to the one that
+    writes lse, and the loop bounds' mirror (owned and walked tiles of the
+    route, ``bwd_tiles``) against the mask. Then the HGMMA count of its
+    bf16 kernels, and the fp32 call timed at launch.train's shape and the
+    bf16 one at gemma's, each beside its bound, SDPA's backward and the
+    bytes its route moves (its head slices' fp32 partials written and read
+    once besides its inputs and outputs)."""
     import importlib
 
     from repro_torch.kernels import build, flash_attention_bwd, flash_attention_op_bwd, \
@@ -686,6 +699,15 @@ def _flash_bwd_case(dev, gen, train):
 
     k3 = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
     bf16, f32 = torch.bfloat16, torch.float32
+
+    def route_bytes(B, H, G, T, D, moved):
+        """What the route moves besides its inputs and outputs: the head
+        slices' fp32 dK and dV partials, each written once and read once."""
+        part = build.library().flash_attention_bwd_scratch_floats(B, H, G, T, D) * 4
+        return {"head_slices": build.library().flash_attention_bwd_head_slices(B, H, G, T),
+                "route_bytes": moved + 2 * part,
+                "route_bytes_ms": (moved + 2 * part) / HBM_BYTES_PER_S * 1e3}
+
     cases = (                 # name, B, S, T, H, G, D, dtype, causal, window, q_offset
         ("train", 8, 512, 512, 32, 4, 64, bf16, True, 0, 0),
         ("no key", 1, 64, 512, 32, 4, 64, bf16, True, 48, 504),
@@ -702,6 +724,10 @@ def _flash_bwd_case(dev, gen, train):
         ("D = 192", 1, 100, 300, 8, 2, 192, bf16, False, 0, 0),
         ("D = 80 (cp.async)", 1, 130, 130, 8, 2, 80, bf16, True, 0, 0),
         ("negative offset", 1, 100, 100, 8, 2, 64, bf16, True, 0, -30),
+        # the CUDA cores' walked tiles of 32, and the head slices at R = 2 and 8
+        ("D = 80 fp32", 1, 130, 130, 8, 2, 80, f32, True, 0, 0),
+        ("R = 2", 2, 256, 256, 8, 4, 64, bf16, True, 0, 0),
+        ("R = 8, D = 128", 1, 256, 256, 16, 2, 128, bf16, True, 0, 0),
     )
     worst, cases_out, timing = {}, [], {}
     for name, B, S, T, H, G, D, dtype, causal, window, q_offset in cases:
@@ -722,7 +748,8 @@ def _flash_bwd_case(dev, gen, train):
                     route=route, err_of_max=errs,
                     bits_equal_twice=all(_same_bits(a, b) for a, b in zip(first, second)),
                     served_forward_bits_equal=_same_bits(served, o),
-                    bounds_hold=_bwd_bounds_hold(S, T, k3.BWD_TILE[route], **kw))
+                    head_slices=build.library().flash_attention_bwd_head_slices(B, H, G, T),
+                    bounds_hold=_bwd_bounds_hold(S, T, *k3.bwd_tiles(dtype, D), **kw))
         print(f"  flash_attention_op_bwd {name} {case['dtype']} {case['shape']} {kw} "
               f"{route}: dq dk dv {' '.join(f'{e:.3e}' for e in errs)} of max, tol "
               f"{TOL[dtype]}, same bits twice {case['bits_equal_twice']}", flush=True)
@@ -741,6 +768,7 @@ def _flash_bwd_case(dev, gen, train):
             timing[name] = {
                 "shape": f"q,dO ({B}, {S}, {H}, {D}) k,v ({B}, {T}, {G}, {D}) "
                          f"{case['dtype']} causal",
+                **route_bytes(B, H, G, T, D, moved),
                 **timed("ms", lambda: flash_attention_op_bwd(q, k, v, o, do, lse, **kw), 10),
                 "plain_ms": _event_ms(lambda: [flash_attention_bwd(q, k, v, o, do, **kw)
                                                for _ in range(5)], 5),
@@ -767,6 +795,7 @@ def _flash_bwd_case(dev, gen, train):
             "shape", "max_abs_err", "ms", "eager_ms", "plain_ms", "autograd_plain_ms",
             "library_ms", "library_fwd_bwd_ms", "library_fwd_ms", "library_eager_ms",
             "bound_ms", "bound_by", "flops", "bytes", "lse_max_abs_err")},
+        **route_bytes(8, 32, 4, 512, 64, train["bytes"]),
         "max_err_of_max": worst[bf16], "max_err_of_max_f32": worst[f32],
         "old_backward_ms": train["plain_ms"],       # flash_attention_bwd, the ops it replaced
         "cases": cases_out, **timing, "sass": tc,
@@ -898,7 +927,7 @@ def _decode_case(dev, gen):
     return row
 
 
-def _ssd_inputs(dev, gen, dtype, l, h, groups, decay, n=128, batch=1):
+def _ssd_inputs(dev, gen, dtype, l, h, groups, decay, n=128, batch=1, p=64):
     """x, a, B, C for K4 in the model's layout. ``fast``: a = -softplus(randn),
     about -0.8 a step, so a key 32 positions back weighs about 1e-11 and only
     the tiles on the diagonal show in the result. ``slow``: Mamba2's own
@@ -906,8 +935,9 @@ def _ssd_inputs(dev, gen, dtype, l, h, groups, decay, n=128, batch=1):
     [1e-3, 1e-1] (its init of A_log and dt_bias) by quantiles across the
     heads, dt jittered per position, and x times dt as the block forms it: many heads decay by only O(1-10) over a
     256-position chunk, so every key tile and every state position counts.
-    ``n`` is the state width (B and C's last dim), ``batch`` the sequences."""
-    x = torch.randn(batch, l, h, 64, device=dev, generator=gen)
+    ``n`` is the state width (B and C's last dim), ``batch`` the sequences,
+    ``p`` the head width."""
+    x = torch.randn(batch, l, h, p, device=dev, generator=gen)
     if decay == "fast":
         x, scale = x * 0.3, 0.3
         a = -torch.nn.functional.softplus(torch.randn(batch, l, h, device=dev, generator=gen))
@@ -1130,52 +1160,66 @@ def _ssd_bwd_case(dev, gen):
     chunk)."""
     from repro_torch.kernels import build, ssd_chunk, ssd_chunk_bwd, ssd_chunk_op, \
         ssd_chunk_op_bwd, ssd_chunk_op_bwd_ref, ssd_chunk_op_ref
-    from repro_torch.kernels.ssd_chunk.ssd_chunk import ROUTES, bwd_route, route, \
-        tensor_cores_take
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import ROUTES, bwd_route, check_cuda_cores, \
+        route, tensor_cores_take
 
     Q, h = 256, 32
     tile = {"cuda_cores": 32, "tensor_cores": 64}
     worst, reach = {}, {}
 
-    def routes(default, dtype):        # the default first, then the other where it takes
+    def cuda_cores_take(p, n=128):
+        try:
+            check_cuda_cores("ssd_chunk_bwd", p, n)
+        except ValueError:
+            return False
+        return True
+
+    def routes(default, dtype, q=Q, p=64, n=128):   # the default first, then the other
         return [default] + [r for r in ("tensor_cores", "cuda_cores") if r != default and (
-            r == "cuda_cores" or tensor_cores_take(dtype, Q, 64, 128))]
+            cuda_cores_take(p, n) if r == "cuda_cores" else tensor_cores_take(dtype, q, p, n))]
+
+    def held(dtype, batch, l, hh, groups, decay, q=Q, p=64, n=128, forwards=None):
+        """K4b on each route that takes the case after each K4 route
+        (``forwards``, or each that takes it) at (batch, l, hh heads of p,
+        groups of state width n, chunk q)."""
+        x, a, B, C = _ssd_inputs(dev, gen, dtype, l, hh, groups, decay, n=n, batch=batch, p=p)
+        with torch.no_grad():
+            shapes = [o.shape for o in ssd_chunk_op_ref(x, a, B, C, q)]
+        dy = torch.randn(shapes[0], device=dev, generator=gen).to(dtype)
+        dst, dde = (torch.randn(sh, device=dev, generator=gen) for sh in shapes[1:])
+        want = ssd_chunk_op_bwd_ref(x, a, B, C, q, dy, dst, dde)
+        for fwd in forwards or routes(route(dtype, q, p, n), dtype, q, p, n):
+            for bwd in routes(bwd_route(dtype, q, p, n), dtype, q, p, n):
+                leaves = [t.detach().clone().requires_grad_(True) for t in (x, a, B, C)]
+                n_bwd = ssd_chunk_bwd.route_launches[bwd]
+                n_fwd = ssd_chunk.route_launches[fwd]
+                with _ssd_bwd_on(bwd):
+                    got = torch.autograd.grad(ssd_chunk_op(*leaves, q, which=fwd),
+                                              leaves, (dy, dst, dde))
+                check(ssd_chunk_bwd.route_launches[bwd] == n_bwd + 1
+                      and ssd_chunk.route_launches[fwd] == n_fwd + 1,
+                      f"ssd_chunk_bwd {bwd} after {fwd}: K4b or K4 did not launch once "
+                      f"on its route")
+                errs = [max_err(g, w) / w.float().abs().max().item()
+                        for g, w in zip(got, want)]
+                print(f"  ssd_chunk_bwd {str(dtype)[6:]} b={batch} l={l} heads={hh} P={p} N={n} "
+                      f"groups={groups} chunk={q} decay={decay} forward={fwd} "
+                      f"route={bwd}: dx {errs[0]:.3e} da {errs[1]:.3e} dB "
+                      f"{errs[2]:.3e} dC {errs[3]:.3e} of max (tol {TOL[dtype]})",
+                      flush=True)
+                check(all(g.shape == w.shape and g.dtype == w.dtype
+                          and torch.isfinite(g).all().item()
+                          for g, w in zip(got, want))
+                      and max(errs) <= TOL[dtype],
+                      f"ssd_chunk_bwd {dtype} b={batch} l={l} h={hh} P={p} g={groups} "
+                      f"chunk={q} {decay} {bwd} after {fwd}: errors {errs} of max")
+                worst[bwd, dtype] = max(worst.get((bwd, dtype), 0.0), *errs)
+        return x, a, B, C, dy, dst
 
     for dtype in (torch.bfloat16, torch.float32):
         for batch, l, groups in ((8, 512, 1), (1, 384, 2), (1, 300, 1)):
             for decay in ("fast", "slow"):
-                x, a, B, C = _ssd_inputs(dev, gen, dtype, l, h, groups, decay, batch=batch)
-                with torch.no_grad():
-                    shapes = [o.shape for o in ssd_chunk_op_ref(x, a, B, C, Q)]
-                dy = torch.randn(shapes[0], device=dev, generator=gen).to(dtype)
-                dst, dde = (torch.randn(sh, device=dev, generator=gen) for sh in shapes[1:])
-                want = ssd_chunk_op_bwd_ref(x, a, B, C, Q, dy, dst, dde)
-                for fwd in routes(route(dtype, Q, 64, 128), dtype):
-                    for bwd in routes(bwd_route(dtype, Q, 64, 128), dtype):
-                        leaves = [t.detach().clone().requires_grad_(True) for t in (x, a, B, C)]
-                        n_bwd = ssd_chunk_bwd.route_launches[bwd]
-                        n_fwd = ssd_chunk.route_launches[fwd]
-                        with _ssd_bwd_on(bwd):
-                            got = torch.autograd.grad(ssd_chunk_op(*leaves, Q, which=fwd),
-                                                      leaves, (dy, dst, dde))
-                        check(ssd_chunk_bwd.route_launches[bwd] == n_bwd + 1
-                              and ssd_chunk.route_launches[fwd] == n_fwd + 1,
-                              f"ssd_chunk_bwd {bwd} after {fwd}: K4b or K4 did not launch once "
-                              f"on its route")
-                        errs = [max_err(g, w) / w.float().abs().max().item()
-                                for g, w in zip(got, want)]
-                        print(f"  ssd_chunk_bwd {str(dtype)[6:]} b={batch} l={l} heads={h} "
-                              f"groups={groups} chunk={Q} decay={decay} forward={fwd} "
-                              f"route={bwd}: dx {errs[0]:.3e} da {errs[1]:.3e} dB "
-                              f"{errs[2]:.3e} dC {errs[3]:.3e} of max (tol {TOL[dtype]})",
-                              flush=True)
-                        check(all(g.shape == w.shape and g.dtype == w.dtype
-                                  and torch.isfinite(g).all().item()
-                                  for g, w in zip(got, want))
-                              and max(errs) <= TOL[dtype],
-                              f"ssd_chunk_bwd {dtype} b={batch} l={l} g={groups} {decay} "
-                              f"{bwd} after {fwd}: errors {errs} of max")
-                        worst[bwd, dtype] = max(worst.get((bwd, dtype), 0.0), *errs)
+                x, a, B, C, dy, dst = held(dtype, batch, l, h, groups, decay)
                 if decay == "slow":
                     for bwd in routes(bwd_route(dtype, Q, 64, 128), dtype):
                         rch = _ssd_bwd_reach(x, a, B, C, Q, dy, dst, tile[bwd])
@@ -1186,6 +1230,19 @@ def _ssd_bwd_case(dev, gen):
                               and rch["dx_states"] >= 5 * TOL[dtype],
                               f"ssd_chunk_bwd {dtype} l={l} slow: the case cannot see distant "
                               f"work on the {bwd}: {rch}")
+    # the widest bf16 shapes the tensor cores take: chunks of 512 and 1024
+    # (a head slice holds at most 8192 / chunk heads) and heads of P = 128
+    # (at N = 128 the CUDA cores take P up to 64, so P = 128 at N = 128 runs
+    # on the tensor cores alone; at N = 64 on both)
+    for batch, l, hh, p, n, groups, q in (
+            (2, 1024, 32, 64, 128, 1, 512), (1, 1024, 16, 64, 128, 1, 1024),
+            (1, 700, 16, 64, 128, 2, 1024), (2, 512, 16, 128, 128, 1, 256),
+            (2, 512, 16, 128, 64, 1, 512)):
+        check(bwd_route(torch.bfloat16, q, p, n) == "tensor_cores",
+              f"K4b's default route at chunk {q}, P = {p}, N = {n} is not the tensor cores")
+        for decay in ("fast", "slow"):
+            held(torch.bfloat16, batch, l, hh, groups, decay, q, p, n,
+                 forwards=[route(torch.bfloat16, q, p, n)])
     # the train shape, bf16: bits on two calls on each route, times, bounds
     x, a, B, C = _ssd_inputs(dev, gen, torch.bfloat16, 512, h, 1, "fast", batch=8)
     b, l, _, P = x.shape
@@ -1344,10 +1401,52 @@ def _gqa_gaps(dev, gen, kind, B, H, G, D, T, kv_len=None):
             "max_abs_o": want.float().abs().max().item()}
 
 
+def _ssm_state_case(dev) -> dict:
+    """A Mamba2 prefill continued from a state equals one prefill: layer 0
+    of mamba2-370m at full width, bf16, weights from seed 0, on 2 x 512
+    tokens in one pass against 256 and then 256 from the returned state
+    (split at a chunk boundary, so K4 sees the same chunks). The output
+    within 2e-2 of max |out|, the SSM state within 2e-2 of its max, the
+    conv tails within 2e-2 of theirs (the projections run at other row
+    counts). The same continuation with the state's conv tails zeroed
+    (what a prefill that ignored them computed) must miss by more."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba_block
+    from repro_torch.models.init import init_layer
+
+    cfg = get_config("mamba2-370m")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = init_layer(cfg, *cfg.layer_plan()[0], gen, dev)
+    x = torch.randn(2, 512, cfg.d_model, device=dev, generator=gen).to(cfg.dtype)
+    cut = cfg.ssm_chunk
+
+    def rel(a, b):
+        return max_err(a, b) / b.float().abs().max().item()
+
+    with torch.no_grad():
+        one, s1 = mamba_block(p, x, cfg, return_state=True)
+        first, s = mamba_block(p, x[:, :cut], cfg, return_state=True)
+        second, s2 = mamba_block(p, x[:, cut:], cfg, return_state=True, initial_state=s)
+        no_tails = dict(s, **{k: torch.zeros_like(s[k]) for k in ("conv_x", "conv_B", "conv_C")})
+        blind = mamba_block(p, x[:, cut:], cfg, initial_state=no_tails)
+    out = {"shape": f"x (2, 512, {cfg.d_model}) {str(cfg.dtype)[6:]}, {cut} + {512 - cut}",
+           "out_err_of_max": rel(torch.cat([first, second], 1), one),
+           **{f"{k}_err_of_max": rel(s2[k], s1[k]) for k in s1},
+           "tails_ignored_err_of_max": rel(blind, one[:, cut:])}
+    print(f"  mamba_block from a state at full width: {json.dumps(out)}", flush=True)
+    tol = TOL[torch.bfloat16]
+    check(all(v <= tol for k, v in out.items() if k.endswith("err_of_max")
+              and not k.startswith("tails_ignored"))
+          and out["tails_ignored_err_of_max"] > tol,
+          f"a Mamba2 prefill from a state is not the one-pass prefill: {out}")
+    return out
+
+
 def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = [_relay_case(dev, gen), _flash_case(dev, gen), _decode_case(dev, gen),
             _ssd_case(dev, gen), *_ssd_bwd_case(dev, gen)]
+    rows[3]["prefill_from_state"] = _ssm_state_case(dev)
     rows.append(_flash_bwd_case(dev, gen, rows[1]["train"]["backward"]))
     # how far the kernels (and their plain versions) lie from JAX's bf16
     # attention at served shapes: TinyLlama's prefill and decode, gemma's D 256
@@ -3575,7 +3674,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
                     help="directory for the nvcc log (default: none written)")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated phases to run after the build (e.g. "
+                         "train,launch-train), to time paths alone; such a run prints "
+                         "their result lines and no kernels line or result")
     args = ap.parse_args(argv)
+    only = None if args.phases is None else set(args.phases.split(","))
     if not torch.cuda.is_available():
         print("FAIL no CUDA device: chip_smoke.py runs only on a card", flush=True)
         return 2
@@ -3590,7 +3694,7 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {torch.cuda.get_device_name(0)}",
           flush=True)
-    rows, counts = [], {}
+    rows, counts, ran = [], {}, set()
     try:
         for phase, run in (
             ("build", lambda: phase_build(args.out)),
@@ -3612,6 +3716,9 @@ def main(argv=None) -> int:
                 ("launch-train", "launch-train:mamba2-370m"), phase_launch_train(dev)))),
             ("dryrun", phase_dryrun),
         ):
+            if only is not None and phase != "build" and phase not in only:
+                continue
+            ran.add(phase)
             t0 = time.monotonic()
             run()
             torch.cuda.synchronize()
@@ -3622,6 +3729,11 @@ def main(argv=None) -> int:
         traceback.print_exc()
         print(f"FAIL {type(e).__name__}: {e}", flush=True)
         return 1
+    if only is not None:
+        if only - ran:
+            print(f"FAIL no phase named {sorted(only - ran)}", flush=True)
+            return 2
+        return 0
     for kernel, trained in (
             ("flash_attention_op_bwd", {"train", "dist", "launch-train"}),  # through K3
             ("ssd_chunk_bwd", {"train-ssm", "launch-train:mamba2-370m"})):  # through K4

@@ -195,25 +195,51 @@ SETS["k4b-cuda-cores"] = ("ssd_chunk_bwd.cu", {
      "row items alone", "column items alone", "mutant: key tiles 2+ below the row tile dropped",
      "mutant: state terms dropped"})
 
-_K3B_DS = ("  } else {\n    p = s < A.Sq && lo > hi && t < A.Tk ? inv_t : 0.f;   // a row that sees no key\n"
-           "    ds = 0.f;")
-_K3B_KV = "  kv<<<n_kt * A.G * A.B, kWgThreads * Wkv, smem_kv, stream>>>("
+_K3B_TC_DS = "        ds[u] = vis ? pe * (dpt[e + u] - rv[kTile + c]) : 0.f;"
+_K3B_CC_DS = ("  } else {\n    p = s < A.Sq && lo > hi && t < A.Tk ? inv_t : 0.f;   // a row that sees no key\n"
+              "    ds = 0.f;")
 _K3B_W = "constexpr int kWkv64 = 3;"
-_K3B_DQ = "  dq<<<n_qt * A.H * A.B, kWgThreads * kW, tiles, stream>>>("
+_K3B_WQ = "constexpr int kWq = 1;"
+_K3B_SLOTSQ = "constexpr int kSlotsQ = 2;"
+_K3B_SLICES = "constexpr int kSliceBlocks = 256;"
+_K3B_KV = "  kv<<<n_kt * A.slices * A.G * A.B, kWgThreads * Wkv, smem_kv, stream>>>("
+_K3B_DQ = "  dq<<<n_qt * A.H * A.B, kWgThreads * kWq, tiles, stream>>>("
+_K3B_CC_RING = ("    if (i + 1 < n_walk) issue(i + 1);             // under tile i's math\n"
+                "    cp_async_commit();\n")
 SETS["k3b"] = ("flash_attention_bwd.cu", {
     "as built": [],
+    # the tensor cores: each design choice undone
+    "dK/dV: W 2": [(_K3B_W, _K3B_W.replace("3", "2"))],
+    "dQ: ring of 3": [(_K3B_SLOTSQ, _K3B_SLOTSQ.replace("2", "3"))],
+    "dQ: W 2 (the first design's)": [(_K3B_WQ, _K3B_WQ.replace("1", "2"))],
     "cp.async instead of TMA": [("  int tma = A.vec && A.D % 64 == 0;", "  int tma = 0;")],
-    "two warpgroups a dK/dV block": [(_K3B_W, _K3B_W.replace("3", "2"))],
+    # the head slices' block target, on both routes
+    "no head slices": [(_K3B_SLICES, _K3B_SLICES.replace("256", "1"))],
+    "head slices to 128 blocks": [(_K3B_SLICES, _K3B_SLICES.replace("256", "128"))],
+    "head slices to 512 blocks": [(_K3B_SLICES, _K3B_SLICES.replace("256", "512"))],
+    # the CUDA cores
+    "CUDA cores: ring off": [(_K3B_CC_RING, _K3B_CC_RING + "    cp_async_wait<0>();\n")],
+    "CUDA cores: walked tiles of 64 at D <= 64": [
+        ("constexpr int kWalk64 = 32;", "constexpr int kWalk64 = 64;")],
     # mutants: each must miss one of the cases by far more than the tolerance
-    "mutant: dS not masked": [(_K3B_DS, _K3B_DS.replace("ds = 0.f;", "ds = p * (dp - dlt);"))],
+    "mutant: dS not masked": [
+        (_K3B_TC_DS, "        ds[u] = pe * (dpt[e + u] - rv[kTile + c]);"),
+        (_K3B_CC_DS, _K3B_CC_DS.replace("ds = 0.f;", "ds = p * (dp - dlt);"))],
     "mutant: far query tiles skipped": [
         ("    r.n1 = max(0, s_hi / tile + 1 - r.a1);",
          "    r.n1 = min(2, max(0, s_hi / tile + 1 - r.a1));")],
-    "dK/dV pass alone": [(_K3B_DQ, "  if (0)\n" + _K3B_DQ)],
-    "dQ pass alone": [(_K3B_KV, "  if (0)\n" + _K3B_KV)],
-}, [(torch.bfloat16, 8, 512, 512, 0, 0), (torch.bfloat16, 1, 64, 512, 48, 504),
+    "dK/dV pass alone": [(_K3B_DQ, "  if (0)\n" + _K3B_DQ),
+                         ("  dq<<<n_qt * A.H * A.B, kThreads, smem_q, stream>>>(A, n_qt);",
+                          "  if (0) dq<<<n_qt * A.H * A.B, kThreads, smem_q, stream>>>(A, n_qt);")],
+    "dQ pass alone": [(_K3B_KV, "  if (0)\n" + _K3B_KV),
+                      ("  kv<<<n_kt * A.slices * A.G * A.B, kThreads, smem_kv, stream>>>(A, n_qt);",
+                       "  if (0) kv<<<n_kt * A.slices * A.G * A.B, kThreads, smem_kv, stream>>>(A, "
+                       "n_qt);")],
+}, [(torch.bfloat16, 8, 512, 512, 0, 0), (torch.bfloat16, 4, 512, 512, 0, 0),
+    (torch.bfloat16, 2, 512, 512, 0, 0), (torch.bfloat16, 1, 64, 512, 48, 504),
     (torch.float32, 1, 64, 512, 48, 504), (torch.bfloat16, 1, 40, 64, 16, 48),
-    (torch.float32, 1, 40, 64, 16, 48), (torch.float32, 8, 128, 128, 0, 0)],
+    (torch.float32, 1, 40, 64, 16, 48), (torch.float32, 8, 128, 128, 0, 0),
+    (torch.bfloat16, 1, 512, 512, 0, 0, 16, 16, 256)],
     {"mutant: dS not masked", "mutant: far query tiles skipped", "dK/dV pass alone",
      "dQ pass alone"})
 
@@ -411,14 +437,18 @@ def k4b_cases(lib, cases, dev, gen, route=1):
 
 
 def k3b_cases(lib, cases, dev, gen):
-    """K3b at TinyLlama's heads (32 query heads on 4 KV heads of 64) through
-    its C entry point, causal: the train shape (8 x 512, bf16), rows that
-    see no key (64 rows past 512 keys with a window of 48, and 40 rows on
-    64 keys with a window of 16 whose last 9 see none; bf16 and fp32) and
-    launch.train's fp32 shape (8 x 128). O and lse come from the plain
-    versions; dq, dk and dv are held to autograd through the plain version
-    on the same inputs and dO, each divided by that gradient's largest
-    magnitude (bf16 2e-2, fp32 1e-4, as in ``chip_smoke.py``)."""
+    """K3b through its C entry point, causal, at TinyLlama's heads (32
+    query heads on 4 KV heads of 64) unless a case names (H, G, D): the
+    train shape (8 x 512, bf16; and 4 x 512, a two-microbatch step's, and
+    2 x 512, where the tensor cores' head slices change), rows that see no key (64 rows past 512
+    keys with a window of 48, and 40 rows on 64 keys with a window of 16
+    whose last 9 see none; bf16 and fp32), launch.train's fp32 shape (8 x
+    128) and gemma's heads (16 on 16 of 256, bf16, 512 tokens). O and lse
+    come from the plain versions; dq, dk and dv are held to autograd
+    through the plain version on the same inputs and dO, each divided by
+    that gradient's largest magnitude (bf16 2e-2, fp32 1e-4, as in
+    ``chip_smoke.py``). The scratch is what the variant's own library asks
+    for: its head slices may differ from the kernel as built."""
     from chip_smoke import TOL
     from repro_torch.kernels import flash_attention_lse_ref, flash_attention_op_ref
     from repro_torch.kernels.build import _SIGNATURES
@@ -427,9 +457,12 @@ def k3b_cases(lib, cases, dev, gen):
     fn = lib.flash_attention_bwd_launch
     fn.argtypes = _SIGNATURES["flash_attention_bwd_launch"]
     fn.restype = _I
-    H, G, D = 32, 4, 64
+    lib.flash_attention_bwd_scratch_floats.argtypes = _SIGNATURES[
+        "flash_attention_bwd_scratch_floats"]
+    lib.flash_attention_bwd_scratch_floats.restype = _L
     rows = []
-    for dtype, B, S, T, window, off in cases:
+    for dtype, B, S, T, window, off, *heads in cases:
+        H, G, D = heads or (32, 4, 64)
         kw = dict(causal=True, window=window, q_offset=off)
         q, do = (torch.randn(B, S, H, D, device=dev, generator=gen).to(dtype) for _ in range(2))
         k, v = (torch.randn(B, T, G, D, device=dev, generator=gen).to(dtype) for _ in range(2))
@@ -439,12 +472,15 @@ def k3b_cases(lib, cases, dev, gen):
         o = o.detach()
         lse = flash_attention_lse_ref(q.transpose(1, 2), k.transpose(1, 2), **kw)
         delta = torch.empty_like(lse)
+        scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(B, H, G, T, D),
+                              device=dev)
         grads = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v))
         ts = (q, k, v, o, do) + grads
 
-        def run(q=q, k=k, v=v, o=o, do=do, lse=lse, delta=delta, grads=grads, ts=ts,
-                dtype=dtype, B=B, S=S, T=T, window=window, off=off):
-            rc = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta) + grads),
+        def run(q=q, k=k, v=v, o=o, do=do, lse=lse, delta=delta, scratch=scratch,
+                grads=grads, ts=ts, dtype=dtype, B=B, S=S, T=T, window=window, off=off,
+                H=H, G=G, D=D):
+            rc = fn(*(t.data_ptr() for t in (q, k, v, o, do, lse, delta, scratch) + grads),
                     DTYPES[dtype], B, H, G, S, T, D,
                     *(st for t in ts for st in t.stride()[:3]), 1, window, off, D ** -0.5,
                     torch.cuda.current_stream().cuda_stream)
@@ -460,8 +496,8 @@ def k3b_cases(lib, cases, dev, gen):
 
         run()
         scale = [w.float().abs().max() for w in want]
-        rows.append((f"{str(dtype)[6:]} B={B} S={S} T={T} window={window} q_offset={off} "
-                     f"(dq dk dv)", tuple(g.float() / m for g, m in zip(grads, scale)),
+        rows.append((f"{str(dtype)[6:]} B={B} S={S} T={T} H={H} G={G} D={D} window={window} "
+                     f"q_offset={off} (dq dk dv)", tuple(g.float() / m for g, m in zip(grads, scale)),
                      tuple(w.float() / m for w, m in zip(want, scale)), run, library,
                      [TOL[dtype]] * 3))
     return rows

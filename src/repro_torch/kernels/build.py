@@ -45,8 +45,10 @@ _SIGNATURES = {
         [_P] * 5 + [_I] * 7 + [_L] * 12 + [_I, _I, _I, _F, _P]
     ),
     "flash_attention_bwd_launch": (
-        [_P] * 10 + [_I] * 7 + [_L] * 24 + [_I, _I, _I, _F, _P]
+        [_P] * 11 + [_I] * 7 + [_L] * 24 + [_I, _I, _I, _F, _P]
     ),
+    "flash_attention_bwd_scratch_floats": [_I] * 5,
+    "flash_attention_bwd_head_slices": [_I] * 4,
     "decode_attention_launch": (
         [_P] * 4 + [_I, _P] + [_I] * 6 + [_L] * 10 + [_I, _F, _P]
     ),
@@ -56,7 +58,7 @@ _SIGNATURES = {
     "ssd_chunk_bwd_head_slices": [_I] * 6,
 }
 # every other entry point returns an int: an error code, or a count of head slices
-_RESTYPES = {"ssd_chunk_bwd_scratch_floats": _L}
+_RESTYPES = {"ssd_chunk_bwd_scratch_floats": _L, "flash_attention_bwd_scratch_floats": _L}
 
 
 def _nvcc() -> str:

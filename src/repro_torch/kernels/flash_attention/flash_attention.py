@@ -18,7 +18,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256       # D the CUDA kernels take; the plain versions take any
 TILE_Q = 64              # q rows per block of the bf16 (tensor-core) kernel
 BWD_TC_MAX_HEAD_DIM = 128   # K3b's tensor-core route: bf16 at D <= 128
-BWD_TILE = {"tensor_cores": 64, "cuda_cores": 32}   # K3b's rows and keys per tile
+BWD_OWN = 64             # rows a K3b block owns: keys (dK/dV pass), query rows (dQ pass)
 
 
 def block_order(n_qt: int, H: int, B: int) -> List[Tuple[int, int, int]]:
@@ -41,37 +41,60 @@ def bwd_route(dtype: torch.dtype, D: int) -> str:
             else "cuda_cores")
 
 
+def bwd_tiles(dtype: torch.dtype, D: int) -> Tuple[int, int]:
+    """(owned, walked) rows a tile of K3b's blocks: a block owns 64 keys
+    (dK/dV pass) or 64 query rows (dQ pass) and walks tiles of the other
+    side. The tensor cores walk 64; the CUDA cores walk 32 up to D = 128
+    and 16 past it (``walk_rows`` in the C source), so that the fp32 tiles
+    fit shared memory."""
+    if bwd_route(dtype, D) == "tensor_cores":
+        return BWD_OWN, 64
+    return BWD_OWN, 32 if D <= 128 else 16
+
+
+def bwd_slice_heads(H: int, G: int, slices: int, g: int, sl: int) -> List[int]:
+    """The query heads slice ``sl`` of KV head ``g`` holds, in the order
+    its block walks them: heads g R + sl R/slices + j, j < R/slices."""
+    R = H // G
+    rs = R // slices
+    return [g * R + sl * rs + j for j in range(rs)]
+
+
 def bwd_key_tiles(qt: int, tile: int, Sq: int, T: int, *, causal: bool, window: int,
-                  q_offset: int) -> List[int]:
-    """The key tiles K3b's dQ pass walks for query tile ``qt`` (``tile``
-    rows and keys a tile), as K3's forward walks them: every tile holding a
-    key that some row of the query tile sees. Rows that see no key get no
-    dQ, so they add no tile."""
+                  q_offset: int, k_tile: Optional[int] = None) -> List[int]:
+    """The key tiles (of ``k_tile`` keys, ``tile`` by default) K3b's dQ
+    pass walks for query tile ``qt`` (``tile`` rows), as K3's forward walks
+    them: every tile holding a key that some row of the query tile sees
+    (``key_tiles`` in the C source). Rows that see no key get no dQ, so
+    they add no tile."""
+    kt_ = k_tile or tile
     q0 = qt * tile
     p_lo, p_hi = q0 + q_offset, min(q0 + tile, Sq) - 1 + q_offset
     k_end = min(T, p_hi + 1) if causal else T
-    k_begin = max(0, p_lo - window + 1) // tile * tile if window > 0 else 0
-    return list(range(k_begin // tile, -(-k_end // tile))) if k_end > k_begin else []
+    k_begin = max(0, p_lo - window + 1) // kt_ * kt_ if window > 0 else 0
+    return list(range(k_begin // kt_, -(-k_end // kt_))) if k_end > k_begin else []
 
 
 def bwd_query_tiles(kt: int, tile: int, Sq: int, T: int, *, causal: bool, window: int,
-                    q_offset: int) -> List[int]:
-    """The query tiles K3b's dK/dV pass walks for key tile ``kt``, in order
+                    q_offset: int, q_tile: Optional[int] = None) -> List[int]:
+    """The query tiles (of ``q_tile`` rows, ``tile`` by default) K3b's
+    dK/dV pass walks for key tile ``kt`` (``tile`` keys), in order
     (``query_tiles`` in ``csrc/flash_attention_bwd.cu``): the tiles of the
     rows that see a key of the tile, and every tile holding a row that sees
     no key, since such a row's softmax puts 1/T on each of the T keys and
     so reaches every key's dV. Those rows lie before position 0 (causal)
     and at or past position T + window - 1 (a window)."""
-    n_qt = -(-Sq // tile)
+    qt_ = q_tile or tile
+    n_qt = -(-Sq // qt_)
     t_hi = min(kt * tile + tile, T) - 1
     s_lo = max(0, kt * tile - q_offset) if causal else 0
     s_hi = min(Sq - 1, t_hi + window - 1 - q_offset) if window > 0 else Sq - 1
     n_pre, s_suf = no_key_rows(Sq, T, causal=causal, window=window, q_offset=q_offset)
-    tiles = list(range(-(-n_pre // tile)))
+    tiles = list(range(-(-n_pre // qt_)))
     if s_lo <= s_hi:
-        tiles += range(max(len(tiles), s_lo // tile), s_hi // tile + 1)
+        tiles += range(max(len(tiles), s_lo // qt_), s_hi // qt_ + 1)
     if s_suf < Sq:
-        tiles += range(max(tiles[-1] + 1 if tiles else 0, s_suf // tile), n_qt)
+        tiles += range(max(tiles[-1] + 1 if tiles else 0, s_suf // qt_), n_qt)
     return tiles
 
 
@@ -164,9 +187,13 @@ def launch_bwd(q, k, v, o, do, lse, dq, dk, dv, *, causal: bool, window: int,
     if q.numel() == 0 or k.numel() == 0:
         raise ValueError("flash_attention_bwd: empty q or k")
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = build.library()
+    # the head slices' fp32 dK and dV partials (none with one slice)
+    scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(B, H, G, T, D),
+                          dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        rc = build.library().flash_attention_bwd_launch(
-            *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, dq, dk, dv)),
+        rc = lib.flash_attention_bwd_launch(
+            *(t.data_ptr() for t in (q, k, v, o, do, lse, delta, scratch, dq, dk, dv)),
             DTYPES[q.dtype], B, H, G, Sq, T, D,
             *(s for t in tensors for s in t.stride()[:3]),
             int(causal), int(window), int(q_offset), float(D ** -0.5),

@@ -62,10 +62,17 @@ def ssd_decode_step(
 # ---------------------------------------------------------------------------
 # Depthwise causal conv (width cfg.conv_width)
 # ---------------------------------------------------------------------------
-def causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """x: (b, l, ch), w: (width, ch) depthwise. Causal (left) padding."""
+def causal_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                tail: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x: (b, l, ch), w: (width, ch) depthwise. Causal: the positions before
+    x are ``tail`` (b, width-1, ch), the raw inputs a state carries, or
+    zeros without one. A zero tail gives the same bits as none: the conv
+    reads one contiguous (b, ch, l+width-1) tensor of the same values."""
     width = w.shape[0]
-    xp = F.pad(x.transpose(1, 2), (width - 1, 0))               # (b, ch, l+w-1)
+    if tail is None:
+        xp = F.pad(x.transpose(1, 2), (width - 1, 0))           # (b, ch, l+w-1)
+    else:
+        xp = torch.cat([tail.to(x.dtype), x], dim=1).transpose(1, 2).contiguous()
     out = F.conv1d(xp, w.t()[:, None, :], groups=x.shape[-1])    # (b, ch, l)
     return out.transpose(1, 2).contiguous() + bias
 
@@ -135,9 +142,14 @@ def mamba_mix(params: Dict, z, xin_raw, Bp_raw, Cp_raw, dt, cfg,
     b, l, h = dt.shape
     p, n = cfg.ssm_head_dim, cfg.ssm_state
     tail = cfg.conv_width - 1
-    xin = F.silu(causal_conv(xin_raw, params["conv_x_w"], params["conv_x_b"]))
-    Bp = F.silu(causal_conv(Bp_raw, params["conv_B_w"], params["conv_B_b"]))
-    Cp = F.silu(causal_conv(Cp_raw, params["conv_C_w"], params["conv_C_b"]))
+    raw = {"conv_x": xin_raw, "conv_B": Bp_raw, "conv_C": Cp_raw}
+    # a prefill continued from a state: the state's conv tails (each as wide
+    # as its projection here: the rank's channels of conv_x under the
+    # head-parallel mixer) precede the new positions, so two prefills equal
+    # one. The JAX package's mamba_block reads only the ssm state here.
+    tails = {k: None if initial_state is None else initial_state[k] for k in raw}
+    xin, Bp, Cp = (F.silu(causal_conv(raw[k], params[k + "_w"], params[k + "_b"], tails[k]))
+                   for k in raw)
     dt = F.softplus(dt + params["dt_bias"])                      # (b, l, h)
     a = -torch.exp(params["A_log"]) * dt                         # fp32
     xh = xin.reshape(b, l, h, p)
@@ -149,13 +161,11 @@ def mamba_mix(params: Dict, z, xin_raw, Bp_raw, Cp_raw, dt, cfg,
     )
     y = y + params["D"][:, None] * xh                            # skip
     y = y.reshape(b, l, h * p).to(z.dtype)
-    state = {
-        "ssm": final_ssm,
-        # conv tails: the last (width-1) raw projections, for exact decode
-        "conv_x": _tail(xin_raw, tail),
-        "conv_B": _tail(Bp_raw, tail),
-        "conv_C": _tail(Cp_raw, tail),
-    }
+    # conv tails: the last (width-1) raw projections, for exact decode; a
+    # prefill shorter than the tail keeps the older ones
+    state = {"ssm": final_ssm, **{
+        k: _tail(t if tails[k] is None else torch.cat([tails[k].to(t.dtype), t], dim=1), tail)
+        for k, t in raw.items()}}
     return _gated_norm(y, z, params["norm"], cfg), state
 
 

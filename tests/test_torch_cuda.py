@@ -675,6 +675,63 @@ def test_k3b_gives_the_same_bits_twice(dev, dtype, B, S, T, H, G, D, window, q_o
         assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
+@pytest.mark.parametrize("dtype,B,S,T,H,G,D,window,q_offset", [
+    (torch.bfloat16, 8, 512, 512, 32, 4, 64, 0, 0),     # the train shape: tensor cores
+    (torch.float32, 8, 128, 128, 32, 4, 64, 0, 0),      # launch.train's fp32: CUDA cores
+    (torch.bfloat16, 1, 130, 130, 8, 2, 80, 0, 0),      # D = 80, tensor cores by cp.async
+    (torch.float32, 1, 130, 130, 8, 2, 80, 0, 0),       # D = 80, CUDA cores, walked 32
+    (torch.bfloat16, 1, 100, 300, 8, 2, 192, 0, 200),   # D = 192, CUDA cores, walked 16
+    (torch.bfloat16, 1, 512, 512, 16, 16, 256, 0, 0),   # gemma's D = 256, R = 1
+    (torch.float32, 1, 200, 200, 8, 8, 64, 0, 0),       # R = 1
+    (torch.bfloat16, 2, 256, 256, 8, 4, 64, 0, 0),      # R = 2
+    (torch.float32, 2, 100, 100, 8, 4, 64, 32, 0),      # R = 2, a window
+    (torch.bfloat16, 1, 256, 256, 16, 2, 128, 0, 0),    # R = 8 at D = 128
+    (torch.float32, 2, 100, 100, 16, 2, 64, 0, -20),    # R = 8, rows before position 0
+    (torch.float32, 1, 70, 90, 4, 2, 30, 0, 20),        # D % 4 != 0: staged element-wise
+    (torch.bfloat16, 1, 70, 90, 4, 2, 140, 0, 20),      # bf16 D % 8 != 0 on the CUDA cores
+    (torch.bfloat16, 1, 70, 90, 4, 2, 100, 0, 20),      # ... and on the tensor cores
+])
+def test_k3b_matches_plain_and_repeats_its_bits_on_each_route(dev, dtype, B, S, T, H, G, D,
+                                                              window, q_offset):
+    """K3b on both routes, with the head slices its dK/dV pass takes there:
+    (dq, dk, dv) against autograd through the plain version on the same
+    inputs and dO (2e-2 / 1e-4 of each gradient's max), and the same bits
+    on a second call."""
+    from repro_torch.kernels.flash_attention.ops import _forward
+
+    q, k, v, do = _k3b_inputs(dev, dtype, B, S, T, H, G, D, seed=5)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    o, lse = _forward(q, k, v, True, window, q_offset, with_lse=True)
+    first = flash_attention_op_bwd(q, k, v, o, do, lse, **kw)
+    second = flash_attention_op_bwd(q, k, v, o, do, lse, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_op_ref(*leaves, **kw), leaves, do)
+    for a, b, w in zip(first, second, want):
+        assert a.dtype == dtype and torch.isfinite(a).all()
+        assert _rel_to_scale(a, w) <= TOL[dtype]["atol"]
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+@pytest.mark.parametrize("B,H,G,T,want", [
+    (8, 32, 4, 512, 1),     # TinyLlama's train shape: 256 blocks already
+    (4, 32, 4, 512, 2),     # its two-microbatch step: 128 blocks -> 256
+    (8, 32, 4, 128, 4),     # launch.train's 8 x 128: 64 blocks -> 256
+    (1, 16, 16, 512, 1),    # gemma: R = 1
+    (1, 8, 4, 200, 2),      # R = 2: one head a slice
+    (2, 64, 8, 512, 2),     # the VLM's 8 heads a group: 128 blocks
+    (1, 32, 4, 512, 8),     # one sequence: 32 blocks, a head each
+    (2, 24, 4, 512, 6),     # R = 6: 4 slices would do, 6 divide it
+])
+def test_k3b_head_slices_follow_the_rule(dev, B, H, G, T, want):
+    """The C source's head slices of K3b's dK/dV pass (the fewest dividing
+    R that give 256 blocks) and the fp32 partials they ask for."""
+    lib = build.library()
+    assert lib.flash_attention_bwd_head_slices(B, H, G, T) == want
+    D = 64
+    assert lib.flash_attention_bwd_scratch_floats(B, H, G, T, D) == \
+        (2 * want * B * T * G * D if want > 1 else 0)
+
+
 @pytest.mark.parametrize("dtype,H,G,D,S,T,causal,window,q_offset", [
     (torch.bfloat16, 32, 4, 64, 512, 512, True, 0, 0),
     (torch.bfloat16, 64, 8, 128, 512, 576, False, 0, 0),
@@ -854,6 +911,31 @@ def test_ssd_chunk_bwd_matches_plain(dev, b, l, h, p, n, groups, chunk, dtype, d
     """Each K4 forward route, then each K4b route (the default: the tensor
     cores for the bf16 shapes they take, else the CUDA cores)."""
     _ssd_grads_match_plain(dev, dtype, b, l, h, p, n, groups, chunk, decay, which, bwd_which)
+
+
+@pytest.mark.parametrize("decay", ["fast", "slow"])
+@pytest.mark.parametrize("b,l,h,p,n,groups,chunk,bwd_which", [
+    (2, 1024, 32, 64, 128, 1, 512, None),   # chunk 512: 8 row tiles, slices of <= 16 heads
+    (2, 1024, 32, 64, 128, 1, 512, "cuda_cores"),
+    (1, 1024, 16, 64, 128, 1, 1024, None),  # chunk 1024, the largest the tensor cores take
+    (1, 1024, 16, 64, 128, 1, 1024, "cuda_cores"),
+    (1, 700, 16, 64, 128, 2, 1024, None),   # chunk 1024, ragged, two groups
+    (2, 512, 16, 128, 128, 1, 256, None),   # P = 128 at N = 128: the tensor cores alone
+    (2, 512, 16, 128, 64, 1, 256, None),    # P = 128 at N = 64, on each route
+    (2, 512, 16, 128, 64, 1, 256, "cuda_cores"),
+    (1, 300, 8, 128, 64, 1, 512, None),     # P = 128 at chunk 512, ragged
+    (1, 300, 8, 128, 64, 1, 512, "cuda_cores"),
+])
+def test_ssd_chunk_bwd_matches_plain_at_the_widest_shapes(dev, b, l, h, p, n, groups, chunk,
+                                                          bwd_which, decay):
+    """The bf16 shapes ``tensor_cores_take`` admits past Mamba2-370m's: chunks
+    of 512 and 1024 (the head-slice rule caps a slice at 8192 / Q heads)
+    and heads of P = 128, on the default K4b route (the tensor cores) and on
+    the CUDA cores where they take the shape (at N = 128 their state
+    accumulators stop at P = 64), after the default forward."""
+    assert bwd_route(torch.bfloat16, chunk, p, n) == "tensor_cores"
+    _ssd_grads_match_plain(dev, torch.bfloat16, b, l, h, p, n, groups, chunk, decay, None,
+                           bwd_which)
 
 
 @pytest.mark.parametrize("which", [None, "cuda_cores"])

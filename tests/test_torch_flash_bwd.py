@@ -120,6 +120,99 @@ def test_bwd_loop_bounds_visit_every_needed_pair_once(Sq, T, causal, window, q_o
         assert tiles == sorted(tiles)
 
 
+@pytest.mark.parametrize("walk", [32, 16])
+@pytest.mark.parametrize("Sq,T,causal,window,q_offset", BOUNDS)
+def test_bwd_loop_bounds_with_walked_tiles_narrower_than_owned(Sq, T, causal, window,
+                                                               q_offset, walk):
+    """The CUDA-core route's blocks own 64 keys (or rows) and walk tiles of
+    32 or 16 rows (or keys) past D = 64: the same needs, held by visits of
+    (walked tile, owned tile) rectangles, each once and each needed, the
+    dK/dV pass's query tiles in order."""
+    own = k3.BWD_OWN
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    seen = visible(Sq, T, **kw).numpy()
+    kv_need = seen | ~seen.any(1, keepdims=True)
+    kv_visits = [(qt, kt) for kt in range(-(-T // own))
+                 for qt in k3.bwd_query_tiles(kt, own, Sq, T, **kw, q_tile=walk)]
+    q_visits = [(qt, kt) for qt in range(-(-Sq // own))
+                for kt in k3.bwd_key_tiles(qt, own, Sq, T, **kw, k_tile=walk)]
+    for visits, need, (rq, rk) in ((kv_visits, kv_need, (walk, own)),
+                                   (q_visits, seen, (own, walk))):
+        assert len(visits) == len(set(visits))
+        assert all(0 <= qt < -(-Sq // rq) and 0 <= kt < -(-T // rk) for qt, kt in visits)
+        covered = np.zeros_like(need)
+        for qt, kt in visits:
+            covered[qt * rq:(qt + 1) * rq, kt * rk:(kt + 1) * rk] = True
+            assert need[qt * rq:(qt + 1) * rq, kt * rk:(kt + 1) * rk].any()
+        assert not (need & ~covered).any()
+    for kt in range(-(-T // own)):
+        tiles = k3.bwd_query_tiles(kt, own, Sq, T, **kw, q_tile=walk)
+        assert tiles == sorted(tiles)
+
+
+@pytest.mark.parametrize("dtype,D,want", [
+    (torch.bfloat16, 64, (64, 64)), (torch.bfloat16, 80, (64, 64)),
+    (torch.bfloat16, 128, (64, 64)), (torch.float32, 64, (64, 32)),
+    (torch.float32, 80, (64, 32)), (torch.float32, 128, (64, 32)),
+    (torch.bfloat16, 192, (64, 16)), (torch.bfloat16, 256, (64, 16)),
+    (torch.float32, 256, (64, 16)),
+])
+def test_bwd_tiles_by_route_and_head_width(dtype, D, want):
+    assert k3.bwd_tiles(dtype, D) == want
+
+
+# dK/dV blocks K3b's head slices aim at on either route (kSliceBlocks in
+# csrc/flash_attention_bwd.cu, whose rule the card test
+# test_k3b_head_slices_follow_the_rule holds to the same table)
+SLICE_BLOCKS = 256
+
+
+def _head_slices(B, H, G, T):
+    """``head_slices`` of the C source restated: the fewest slices dividing
+    R = H / G that give SLICE_BLOCKS blocks of (key tile, KV head, batch,
+    slice), else one head a slice."""
+    R, blocks = H // G, -(-T // k3.BWD_OWN) * G * B
+    return next((s for s in range(1, R) if R % s == 0 and blocks * s >= SLICE_BLOCKS), R)
+
+
+@pytest.mark.parametrize("B,H,G,T,want", [
+    (8, 32, 4, 512, 1),     # TinyLlama's train shape: 256 blocks already
+    (4, 32, 4, 512, 2),     # its two-microbatch step: 128 blocks -> 256
+    (8, 32, 4, 128, 4),     # launch.train's 8 x 128: 64 blocks -> 256
+    (1, 16, 16, 512, 1),    # gemma: R = 1
+    (1, 8, 4, 200, 2),      # R = 2: one head a slice
+    (2, 64, 8, 512, 2),     # the VLM's 8 heads a group: 128 blocks
+    (1, 32, 4, 512, 8),     # one sequence: 32 blocks, a head each
+    (2, 24, 4, 512, 6),     # R = 6: 4 slices would do, 6 divide it
+])
+def test_bwd_head_slices(B, H, G, T, want):
+    """The fewest slices dividing R that give the block target."""
+    got = _head_slices(B, H, G, T)
+    assert got == want and (H // G) % got == 0
+
+
+@pytest.mark.parametrize("slices", [1, 2, 4])
+def test_slice_sums_in_slice_order_equal_the_unsliced_gradient(slices):
+    """The CPU mirror of the sliced dK/dV pass: each slice's heads (as its
+    block walks them) give a partial dK and dV; summed in slice order they
+    are the unsliced plain gradient (fp32 rounding), and dq is each head's
+    own. The slices of a group partition its heads."""
+    B, S, T, H, G, D = 2, 40, 64, 8, 2, 16
+    q, k, v, o, do = _inputs(B, S, T, H, G, D, seed=4)
+    kw = dict(causal=True, window=16, q_offset=48)       # rows that see no key too
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **kw)
+    heads = [[h for g in range(G) for h in k3.bwd_slice_heads(H, G, slices, g, sl)]
+             for sl in range(slices)]
+    assert sorted(sum(heads, [])) == list(range(H))
+    sk, sv = torch.zeros_like(dk), torch.zeros_like(dv)
+    for hs in heads:                                      # slice order
+        pq, pk, pv = flash_attention_bwd(q[:, :, hs], k, v, o[:, :, hs], do[:, :, hs], **kw)
+        sk, sv = sk + pk, sv + pv
+        torch.testing.assert_close(pq, dq[:, :, hs], rtol=0, atol=1e-5 * dq.abs().max())
+    for got, want in ((sk, dk), (sv, dv)):
+        assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+
+
 def _inputs(B=2, S=40, T=64, H=8, G=2, D=16, seed=0, dtype=torch.float32, device="cpu"):
     g = torch.Generator().manual_seed(seed)
     q, o, do = (torch.randn(B, S, H, D, generator=g).to(dtype).to(device) for _ in range(3))

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels.relay_copy import relay_assemble
+from ..obs import NULL_TRACER, card
 from .config import MMAConfig
 from .engine import MMAEngine
 from .path_selector import Route
@@ -101,7 +102,9 @@ class ChunkAssembler:
         if dev.type == "cuda":
             # Upload perm before the waits, from pinned memory: the host
             # does not block on the chunks' copies.
-            perm = perm.pin_memory().to(dev, non_blocking=True)
+            with card.span("mma.xfer.pin"):
+                perm = perm.pin_memory()
+            perm = perm.to(dev, non_blocking=True)
             stream = torch.cuda.current_stream(dev)
             for ev in self.events:
                 stream.wait_event(ev)
@@ -153,6 +156,14 @@ class TorchBackend(Backend):
 
     def now(self) -> float:
         return time.monotonic()
+
+    @property
+    def tracer(self):
+        """The card path's tracer (``obs.card``) while one is in place:
+        the engine's task spans then record as ``mma.xfer.h2d`` /
+        ``mma.xfer.d2h``."""
+        tr = card.current()
+        return NULL_TRACER if tr is None else tr
 
     def _fence(self) -> None:
         """Order every copy stream after the work already queued on the
@@ -295,7 +306,8 @@ def multipath_device_put(
     host = _host_tensor(arr)
     dev = backend.devices[target]
     if dev.type == "cuda" and not host.is_pinned():
-        host = host.pin_memory()
+        with card.span("mma.xfer.pin"):
+            host = host.pin_memory()
     payload = HostPayload(
         flat=host.reshape(-1), shape=tuple(host.shape), dtype=host.dtype
     )
@@ -335,9 +347,9 @@ def multipath_device_get(
             f"{backend.devices[target]}"
         )
     shape, dtype = tuple(tensor.shape), tensor.dtype
-    out = torch.empty(
-        tensor.numel(), dtype=dtype, pin_memory=tensor.device.type == "cuda"
-    )
+    pin = tensor.device.type == "cuda"
+    with card.span("mma.xfer.pin") if pin else contextlib.nullcontext():
+        out = torch.empty(tensor.numel(), dtype=dtype, pin_memory=pin)
     payload = HostPayload(flat=out, shape=shape, dtype=dtype)
     nbytes = out.numel() * payload.itemsize
     if nbytes:
@@ -346,6 +358,8 @@ def multipath_device_get(
             nbytes=nbytes, device=target, direction=Direction.D2H,
             src=tensor.contiguous().reshape(-1), dst=payload, spec=spec,
         )
-        for ev in payload.events:
-            ev.synchronize()
+        if payload.events:
+            with card.span("mma.xfer.wait"):
+                for ev in payload.events:
+                    ev.synchronize()
     return out.reshape(shape)

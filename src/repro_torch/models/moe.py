@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.sharding import P
+from ..obs import card
 from .layers import BATCH, MODEL, pspec, shard, shard_map
 
 
@@ -89,7 +90,8 @@ def slot_positions(top_i: torch.Tensor, n_experts: int) -> torch.Tensor:
 
 
 def moe_ffn(params: Dict, x: torch.Tensor, cfg, *, return_aux: bool = False):
-    """x: (B, S, d). SwiGLU experts over (B, E, C, d) capacity buffers."""
+    """x: (B, S, d). SwiGLU experts over (B, E, C, d) capacity buffers; one
+    span a stage on the card tracer (``obs.card``), timed on the card."""
     B, S, d = x.shape
     E = cfg.n_experts
     C = capacity(S, cfg)
@@ -120,16 +122,23 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg, *, return_aux: bool = False):
 
     tok = pspec(BATCH, None, None, dims=x.shape)              # (B, S, ·) leaves
     buf = pspec(BATCH, None, None, None, dims=(B, E, C, d))
-    buffers, weight, top_i, pos_c, probs, chosen = shard_map(
-        route, (tok, P()), (buf, tok, tok, tok, tok, tok), x, params["router"])
-    buffers = shard(buffers, BATCH, MODEL, None, None)
-    ex = pspec(BATCH, MODEL, None, None, dims=buffers.shape)
-    w = pspec(MODEL, None, None, dims=params["w_gate"].shape)
-    out_buf = shard_map(experts, (ex, w, w, w), ex, buffers,
-                        params["w_gate"], params["w_up"], params["w_down"])
-    out_buf = shard(out_buf, BATCH, MODEL, None, None)
-    y = shard_map(combine, (buf, tok, tok, tok), tok, out_buf, weight, top_i, pos_c)
-    y = shard(y, BATCH, None, None)
+    with card.span("mma.moe"):
+        card.count("mma.moe.tokens", B * S)
+        with card.span("mma.moe.route", device=x.device):
+            buffers, weight, top_i, pos_c, probs, chosen = shard_map(
+                route, (tok, P()), (buf, tok, tok, tok, tok, tok), x,
+                params["router"])
+            buffers = shard(buffers, BATCH, MODEL, None, None)
+        with card.span("mma.moe.experts", device=x.device):
+            ex = pspec(BATCH, MODEL, None, None, dims=buffers.shape)
+            w = pspec(MODEL, None, None, dims=params["w_gate"].shape)
+            out_buf = shard_map(experts, (ex, w, w, w), ex, buffers,
+                                params["w_gate"], params["w_up"], params["w_down"])
+            out_buf = shard(out_buf, BATCH, MODEL, None, None)
+        with card.span("mma.moe.combine", device=x.device):
+            y = shard_map(combine, (buf, tok, tok, tok), tok, out_buf, weight,
+                          top_i, pos_c)
+            y = shard(y, BATCH, None, None)
     if return_aux:
         return y, _balance(chosen, probs, E)
     return y

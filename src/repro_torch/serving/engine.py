@@ -25,6 +25,7 @@ from ..core import Direction, TrafficClass, TransferSpec, make_sim_engine
 from ..core.config import GB, MMAConfig
 from ..device import resolve_device
 from ..models import decode_step, init_params, prefill
+from ..obs import card
 from .kv_cache import KVCacheManager, kv_bytes_per_token
 from .scheduler import Request, Scheduler
 
@@ -231,6 +232,9 @@ class FunctionalServer:
         )
         self.max_len = max_len
         self.transfer_log: List[Tuple[str, int]] = []
+        # req_id -> (request, its mma.req span, its mma.req.queue span),
+        # kept only while the card tracer is on (obs.card)
+        self._traced: Dict[int, Tuple[Request, int, int]] = {}
 
     # ------------------------------------------------------------------
     def submit(
@@ -257,41 +261,70 @@ class FunctionalServer:
             deadline=None if deadline_s is None else self._now() + deadline_s,
             tenant=tenant,
         )
+        tr = card.current()
+        if tr is not None:
+            t, rid, track = time.monotonic(), req.req_id, f"req:{req.req_id}"
+            root = tr.begin("mma.req", "request", track, t, req_id=rid)
+            queue = tr.begin("mma.req.queue", "request", track, t, parent=root,
+                             req_id=rid)
+            self._traced[rid] = (req, root, queue)
         self.scheduler.submit(req)
         return req
 
+    def _admitted(self, tr, admitted: List[Request]) -> None:
+        """End the queue span of each request ``schedule`` just admitted,
+        and both spans of each it rejected."""
+        t = time.monotonic()
+        for req in admitted:
+            spans = self._traced.get(req.req_id)
+            if spans is not None and spans[2]:
+                tr.end(spans[2], t)
+                self._traced[req.req_id] = (req, spans[1], 0)
+        for rid, (req, root, queue) in list(self._traced.items()):
+            if req.state == "rejected":
+                tr.end(queue, t, rejected=True)
+                tr.end(root, t, rejected=True)
+                del self._traced[rid]
+
     def _prefill(self, req: Request) -> None:
-        t0 = time.monotonic()
-        toks = torch.as_tensor(req.tokens, dtype=torch.long,
-                               device=self.device)[None]
-        # Request deadlines live on the scheduler's (wall) clock; the KV
-        # engine's deadline machinery compares against *sim* time, so
-        # translate the remaining budget into the sim clock domain.
-        sim_deadline = None
-        if req.deadline is not None:
-            remaining = max(req.deadline - self._now(), 0.0)
-            sim_deadline = self.sim_world.now + remaining
-        hit, task, payload = self.kv.fetch(
-            req.tokens,
-            traffic_class=self.scheduler.transfer_class_for(req, "fetch"),
-            deadline=sim_deadline,
-            tenant=req.tenant,
-        )
-        self.sim_world.run()
-        if hit:
-            # The hit KV is fetched through the engine (sim-timed). The
-            # functional path re-prefills (weights identical => identical
-            # KV, verified by tests); a payload round-trip would skip it.
-            self.transfer_log.append(("fetch", hit))
-            req.hit_tokens = hit
-        logits, caches, clen = prefill(
-            self.params, toks, self.cfg, max_len=self.max_len
-        )
-        req.context = {"caches": caches, "cache_len": clen}
-        # int() waits for the card: the first token exists when TTFT ends.
-        req.generated.append(int(torch.argmax(logits[0])))
-        req.ttft = time.monotonic() - t0
-        req.first_token_at = self._now()
+        tr = card.current()
+        spans = self._traced.pop(req.req_id, None) if tr is not None else None
+        with card.span("mma.serve.prefill", parent=spans[1] if spans else None,
+                       req_id=req.req_id):
+            t0 = time.monotonic()
+            toks = torch.as_tensor(req.tokens, dtype=torch.long,
+                                   device=self.device)[None]
+            # Request deadlines live on the scheduler's (wall) clock; the KV
+            # engine's deadline machinery compares against *sim* time, so
+            # translate the remaining budget into the sim clock domain.
+            sim_deadline = None
+            if req.deadline is not None:
+                remaining = max(req.deadline - self._now(), 0.0)
+                sim_deadline = self.sim_world.now + remaining
+            with card.span("mma.kv.fetch"):
+                hit, task, payload = self.kv.fetch(
+                    req.tokens,
+                    traffic_class=self.scheduler.transfer_class_for(req, "fetch"),
+                    deadline=sim_deadline,
+                    tenant=req.tenant,
+                )
+                self.sim_world.run()
+            if hit:
+                # The hit KV is fetched through the engine (sim-timed). The
+                # functional path re-prefills (weights identical => identical
+                # KV, verified by tests); a payload round-trip would skip it.
+                self.transfer_log.append(("fetch", hit))
+                req.hit_tokens = hit
+            logits, caches, clen = prefill(
+                self.params, toks, self.cfg, max_len=self.max_len
+            )
+            req.context = {"caches": caches, "cache_len": clen}
+            # int() waits for the card: the first token exists when TTFT ends.
+            req.generated.append(int(torch.argmax(logits[0])))
+            req.ttft = time.monotonic() - t0
+            req.first_token_at = self._now()
+        if spans is not None:                  # the request's first token
+            tr.end(spans[1], time.monotonic())
 
     def _decode_one(self, req: Request) -> None:
         ctx = req.context
@@ -307,6 +340,9 @@ class FunctionalServer:
     def step(self) -> None:
         """One engine iteration: admit, prefill new, decode running."""
         admitted = self.scheduler.schedule()
+        tr = card.current()
+        if tr is not None:
+            self._admitted(tr, admitted)
         for req in admitted:
             self._prefill(req)
         for req in list(self.scheduler.running):
@@ -315,14 +351,15 @@ class FunctionalServer:
                 full = np.concatenate(
                     [req.tokens, np.asarray(req.generated[:-1], np.int32)]
                 )
-                self.kv.offload(
-                    full, payload=None,
-                    traffic_class=self.scheduler.transfer_class_for(
-                        req, "offload"
-                    ),
-                    tenant=req.tenant,
-                )
-                self.sim_world.run()
+                with card.span("mma.kv.offload", req_id=req.req_id):
+                    self.kv.offload(
+                        full, payload=None,
+                        traffic_class=self.scheduler.transfer_class_for(
+                            req, "offload"
+                        ),
+                        tenant=req.tenant,
+                    )
+                    self.sim_world.run()
                 self.transfer_log.append(("offload", len(full)))
                 self.scheduler.finish(req)
             else:

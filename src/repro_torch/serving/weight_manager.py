@@ -10,6 +10,7 @@ through ``multipath_device_get``, ``wake`` puts it back through
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Dict, Optional, Tuple
@@ -22,6 +23,7 @@ from ..core.torch_backend import (
     multipath_device_get,
     multipath_device_put,
 )
+from ..obs import card
 from ..tree import tree_leaves, tree_map
 
 
@@ -95,24 +97,42 @@ class WeightManager:
         queued copies and assembly kernels."""
         dev = self.engine.backend.devices[self.target]
         if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+            with card.span("mma.xfer.wait"):
+                torch.cuda.synchronize(dev)
+
+    def _chunks(self) -> int:
+        """Chunks the engine's link workers have moved, by their own
+        ledgers (direct and relayed)."""
+        gauge = self.engine.sync_metrics().gauge("engine.worker.chunks")
+        return int(gauge.total())
+
+    @contextlib.contextmanager
+    def _span(self, name: str):
+        """A card-tracer span (``obs.card``) over one sleep or wake, with
+        the chunks the engine moved inside it."""
+        with card.span(name, nbytes=self.nbytes) as sp:
+            before = self._chunks() if sp else 0
+            yield
+            if sp:
+                sp.args["chunks"] = self._chunks() - before
 
     def sleep(self, deadline: Optional[float] = None) -> TransferReport:
         """Evict weights to host memory (fall-asleep, D2H)."""
         assert self.state == "awake", "already asleep"
         if self.functional:
             t0 = time.monotonic()
-            self._host_copy = tree_map(
-                lambda l: multipath_device_get(
-                    l, target=self.target, engine=self.engine,
-                    spec=TransferSpec(
-                        traffic_class=self.TRANSFER_CLASS,
-                        tenant=self.tenant,
+            with self._span("mma.weights.sleep"):
+                self._host_copy = tree_map(
+                    lambda l: multipath_device_get(
+                        l, target=self.target, engine=self.engine,
+                        spec=TransferSpec(
+                            traffic_class=self.TRANSFER_CLASS,
+                            tenant=self.tenant,
+                        ),
                     ),
-                ),
-                self.params,
-            )
-            self.params = None
+                    self.params,
+                )
+                self.params = None
             dt = time.monotonic() - t0
             report = TransferReport(self.nbytes, dt,
                                     self.nbytes / max(dt, 1e-9) / (1 << 30))
@@ -126,18 +146,19 @@ class WeightManager:
         assert self.state == "asleep", "not asleep"
         if self.functional:
             t0 = time.monotonic()
-            self.params = tree_map(
-                lambda l: multipath_device_put(
-                    l, target=self.target, engine=self.engine,
-                    spec=TransferSpec(
-                        traffic_class=self.TRANSFER_CLASS,
-                        tenant=self.tenant,
+            with self._span("mma.weights.wake"):
+                self.params = tree_map(
+                    lambda l: multipath_device_put(
+                        l, target=self.target, engine=self.engine,
+                        spec=TransferSpec(
+                            traffic_class=self.TRANSFER_CLASS,
+                            tenant=self.tenant,
+                        ),
                     ),
-                ),
-                self._host_copy,
-            )
-            self._host_copy = None
-            self._wait_for_target()
+                    self._host_copy,
+                )
+                self._host_copy = None
+                self._wait_for_target()
             dt = time.monotonic() - t0
             report = TransferReport(self.nbytes, dt,
                                     self.nbytes / max(dt, 1e-9) / (1 << 30))

@@ -473,6 +473,32 @@ def test_moe_ffn_on_the_card_matches_cpu(dev, S):
     np.testing.assert_allclose(gaux.item(), aux.item(), rtol=1e-4)
 
 
+def test_card_tracer_times_the_moe_stages_on_the_card(dev):
+    """With the card tracer (``obs.card``) in place, moe_ffn on the card
+    gives the same output, and each stage's row carries its card time: the
+    three within the whole call's time between two events around it."""
+    from repro_torch.obs import card
+
+    cfg, p, x = _olmoe_experts(256)
+    gp, gx = {k: t.to(dev) for k, t in p.items()}, x.to(dev)
+    want = moe_ffn(gp, gx, cfg)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    tr = card.install()
+    try:
+        start.record()
+        got = moe_ffn(gp, gx, cfg)
+        end.record()
+    finally:
+        card.uninstall()
+    end.synchronize()
+    assert torch.equal(got, want)
+    rows = {s.name: s for s in tr.all_spans()}
+    stages = [rows[f"mma.moe.{n}"].args["device_s"] for n in ("route", "experts", "combine")]
+    assert all(t > 0 for t in stages)
+    assert sum(stages) <= start.elapsed_time(end) / 1e3 + 2e-6     # 0.5 us a reading
+    assert "device_s" not in rows["mma.moe"].args
+
+
 def test_reduced_olmoe_on_the_card_matches_cpu(dev):
     """Prefill (K3, MoE layers with capacity drops) and 4 greedy decode
     steps (K2) on the card against the plain versions on the CPU, same fp32

@@ -61,7 +61,11 @@ Phases, one result line each:
              call, the served forward (no lse) bit-equal, its loop bounds'
              Python mirror against the mask, and the HGMMA count of its bf16
              kernels; a Mamba2 prefill continued from a state against one
-             prefill at full width (layer 0 of Mamba2-370m, 256 + 256 tokens)
+             prefill at full width (layer 0 of Mamba2-370m, 256 + 256 tokens);
+             K5 moe_dispatch (no TPU kernel) at OLMoE's prefill and decode
+             routes, (1, 3328, 8) and (1, 1, 8) into 64 experts of d 2048 in
+             bf16, equal to its plain version and timed beside its byte
+             bound and the plain version
   transfer   multipath_device_put / _get of a 1 GiB pinned bf16 tensor, bit-exact,
              over [cuda:0] and over [cuda:0, cuda:0] with the relay route forced
   serve      the dense path: TinyLlama-1.1B at full width in bf16 (random weights
@@ -79,10 +83,13 @@ Phases, one result line each:
   serve-moe  the MoE path: OLMoE-1B-7B at full width and depth in bf16 (13.84
              GB), the same round trip and requests, prefill through K3 and
              decode through K2 (16 launches each per prefill and per decode
-             step), the 64-expert top-8 channel in every layer. The plain
-             path replays the kernel path's recorded routes; every K3 and K2
-             call of the comparison is held to its plain version on the same
-             inputs, and the end-to-end logits errors (which this model's
+             step), the 64-expert top-8 channel in every layer through K5
+             (one launch a layer of each prefill and decode step). The plain
+             path (K3, K2 and K5's plain versions) replays the kernel path's
+             recorded routes; every K3 and K2 call of the comparison is held
+             to its plain version on the same inputs, every K5 call of the
+             comparison and of the served requests equal to its plain
+             version on the same inputs, and the end-to-end logits errors (which this model's
              own sensitivity puts past 2e-2 even on the same routes), the
              free-running gap, the routes that differ and the assignments
              dropped over capacity are reported
@@ -91,7 +98,8 @@ Phases, one result line each:
              lands from pinned host memory in the staging layout (K1 on
              every leaf) and is resharded into the serving layout
              (bit-exact); under the mesh a 512-token prefill and 8 greedy
-             decode steps (every K3/K2 call held to its plain version; the
+             decode steps (every K3/K2 call held to its plain version, K5
+             once a layer and step, equal to its plain version; the
              logits beside the same entry points without a mesh); the
              caches through the KV fetch (bit-exact); then one AdamW step
              of TinyLlama-1.1B on DTensor parameters, its loss within 1e-3
@@ -1442,6 +1450,48 @@ def _ssm_state_case(dev) -> dict:
     return out
 
 
+def _moe_dispatch_case(dev, gen):
+    """K5 at OLMoE's served routes: a 3,328-token prefill (the prefix-docs
+    cell's longest prompts) and a decode step, 64 experts, top 8, d 2048,
+    bf16, capacity factor 1.25, routed by top-k of random router logits.
+    The buffers, slots and keep equal the plain version's (torch.equal);
+    timed beside the byte bound (x and top_i read once, the buffers, pos_c
+    and keep written once) and the plain version, issued eagerly (its
+    accumulating ``index_put_`` is not captured in a graph)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_dispatch, moe_dispatch_ref
+    from repro_torch.models.moe import capacity, top_k
+
+    cfg = get_config("olmoe-1b-7b")
+    E, K, d = cfg.n_experts, cfg.top_k, cfg.d_model
+    row = {"name": "moe_dispatch", "route": "cuda", "source": "src/repro_torch/csrc/moe_dispatch.cu",
+           "replaces": "none: XLA scatters src/repro/models/moe.py's capacity buffers"}
+    for key, S, reps in (("prefill", 3328, 20), ("decode", 1, 50)):
+        x = torch.randn(1, S, d, device=dev, generator=gen).to(cfg.dtype)
+        w = torch.randn(d, E, device=dev, generator=gen) * d ** -0.5
+        top_i = top_k(torch.softmax(x.float() @ w, dim=-1), K)[1]
+        C = capacity(S, cfg)
+        got, want = moe_dispatch(x, top_i, E, C), moe_dispatch_ref(x, top_i, E, C)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"moe_dispatch at {key} differs from its plain version")
+        moved = nbytes(x, top_i, *got)
+        row[key] = {
+            "shape": f"top_i (1, {S}, {K}) into ({E}, {C}, {d}) {cfg.dtype}",
+            "dropped": int((want[2] == 0).sum()),
+            **timed("ms", lambda: moe_dispatch(x, top_i, E, C), reps),
+            "plain_eager_ms": _event_ms(
+                lambda: [moe_dispatch_ref(x, top_i, E, C) for _ in range(reps)], reps),
+            "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": moved}
+        r = row[key]
+        print(f"  moe_dispatch {key} {r['shape']}: equal, ms={r['ms']:.5f} "
+              f"eager_ms={r['eager_ms']:.5f} bound_ms={r['bound_ms']:.5f} "
+              f"plain_eager_ms={r['plain_eager_ms']:.5f} dropped={r['dropped']}", flush=True)
+        del x, got, want
+    row.update({k: row["prefill"][k] for k in ("ms", "eager_ms", "bound_ms")},
+               plain_ms=row["prefill"]["plain_eager_ms"], max_abs_err=0.0)
+    return row
+
+
 def phase_kernels(dev):
     gen = torch.Generator(device=dev).manual_seed(1)
     rows = [_relay_case(dev, gen), _flash_case(dev, gen), _decode_case(dev, gen),
@@ -1457,6 +1507,7 @@ def phase_kernels(dev):
     for r in rows[1:3]:
         for where, g in r["gqa_bf16"].items():
             print(f"  {r['name']} {where} against gqa (bf16): {json.dumps(g)}", flush=True)
+    rows.append(_moe_dispatch_case(dev, gen))       # last: the cases above keep their inputs
     report("kernels", **{r["name"]: {k: r.get(k) for k in (
         "ms", "eager_ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}
         for r in rows})
@@ -1528,7 +1579,8 @@ def phase_transfer(dev):
 # ---------------------------------------------------------------------------
 def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
            page_size=16, state_leaf=None, state_probe=None, compare=None,
-           kernel_path=contextlib.nullcontext, gate_logits=True, gate_path=None):
+           kernel_path=contextlib.nullcontext, gate_logits=True, gate_path=None,
+           served_path=contextlib.nullcontext):
     """Drive ``model`` at full width in bf16 through the main path: random
     weights from seed 0, a WeightManager sleep/wake round trip, and a
     FunctionalServer answering 4 requests of 512, 384, 512 (the repeat) and
@@ -1554,8 +1606,9 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
     under which the first request's prefill and decode steps run once more
     (its kernels' launches counted apart, in ``gate_path_launches``), their
     logits held to 2e-2 of the plain path's as ``gate_logits`` holds the
-    main ones. Returns the launch counts of the main path and the result
-    fields."""
+    main ones. ``served_path`` is a context around the server's run on the
+    main path (its time in ``main_path_s``, not in ``serve_s``). Returns
+    the launch counts of the main path and the result fields."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts, route_counts
     from repro_torch.models import decode_step, prefill
@@ -1577,9 +1630,10 @@ def _serve(dev, model: str, plain_path, path_kernels, decode_from_plain_prefill,
                rng.integers(0, cfg.vocab, size=200)]
     reqs = [srv.submit(p, max_new_tokens=32) for p in prompts]
     t0 = time.monotonic()
-    srv.run_until_done()
-    torch.cuda.synchronize()
-    serve_s = time.monotonic() - t0
+    with served_path():
+        srv.run_until_done()
+        torch.cuda.synchronize()
+        serve_s = time.monotonic() - t0
     counts = {**launch_counts(), **route_counts()}   # --- the main path ends here
     main_s = time.monotonic() - t_main
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1723,10 +1777,47 @@ def _plain_attention():
 
 
 @contextlib.contextmanager
+def _plain_dispatch():
+    """The MoE layer with K5 replaced by its plain version (the one-hot
+    count and the accumulating ``index_put_``)."""
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels import moe_dispatch_ref
+
+    with mock.patch.object(moe, "moe_dispatch_op", moe_dispatch_ref):
+        yield
+
+
+@contextlib.contextmanager
+def _probing_dispatch(same_input):
+    """K5 as the MoE layer calls it. Each call's inputs and outputs are
+    kept, and on leaving the context its buffers, slots and keep are held
+    to the plain version's on the same inputs, so no call waits for a
+    comparison: (tokens, all three equal under ``torch.equal``) appended to
+    ``same_input["moe_dispatch_op"]``."""
+    import repro_torch.models.moe as moe
+    from repro_torch.kernels import moe_dispatch_ref
+
+    kernel, calls = moe.moe_dispatch_op, []
+
+    def run(x, top_i, n_experts, capacity):
+        out = kernel(x, top_i, n_experts, capacity)
+        calls.append(((x, top_i, n_experts, capacity), out))
+        return out
+
+    with mock.patch.object(moe, "moe_dispatch_op", run):
+        yield
+    for args, out in calls:
+        ref = moe_dispatch_ref(*args)
+        same_input.setdefault("moe_dispatch_op", []).append(
+            (args[0].shape[1], all(torch.equal(a, b) for a, b in zip(out, ref))))
+
+
+@contextlib.contextmanager
 def _probing(same_input):
-    """K3 and K2 as the model calls them, each call's output held to the
-    plain version's on the same inputs: (max |difference|, share of entries
-    that differ, causal) appended to ``same_input[name]``."""
+    """K3, K2 and K5 as the model calls them, each call's output held to
+    the plain version's on the same inputs: for K3 and K2 (max |difference|,
+    share of entries that differ, causal) appended to ``same_input[name]``;
+    for K5 ``_probing_dispatch``'s readings."""
     import repro_torch.models.attention as attention
     from repro_torch.kernels import decode_attention_op_ref, flash_attention_op_ref
 
@@ -1742,13 +1833,27 @@ def _probing(same_input):
         return mock.patch.object(attention, name, run)
 
     with probe("flash_attention_op", flash_attention_op_ref), \
-            probe("decode_attention_op", decode_attention_op_ref):
+            probe("decode_attention_op", decode_attention_op_ref), \
+            _probing_dispatch(same_input):
         yield
 
 
-def _same_input_fields(same_input, n_k3, n_k2):
+def _dispatch_fields(same_input, n_k5, key="k5_same_input"):
+    """K5's probe readings, checked: ``n_k5`` calls, each equal to its plain
+    version. No field where no call was wanted or made."""
+    calls = same_input.get("moe_dispatch_op", [])
+    got = {"calls": len(calls), "equal": sum(e for _, e in calls),
+           "tokens": sorted({S for S, _ in calls})}
+    check(len(calls) == n_k5 and all(e for _, e in calls),
+          f"moe_dispatch_op differs from its plain version on the same inputs, or was "
+          f"called other than {n_k5} times: {got}")
+    return {key: got} if n_k5 or calls else {}
+
+
+def _same_input_fields(same_input, n_k3, n_k2, n_k5=0):
     """The probes' readings, checked: ``n_k3`` K3 and ``n_k2`` K2 calls,
-    each within the bf16 tolerance of its plain version."""
+    each within the bf16 tolerance of its plain version, and ``n_k5`` K5
+    calls, each equal to its plain version."""
     fields = {}
     for name, key, n in (("flash_attention_op", "k3_same_input", n_k3),
                          ("decode_attention_op", "k2_same_input", n_k2)):
@@ -1761,6 +1866,7 @@ def _same_input_fields(same_input, n_k3, n_k2):
                 (e[0] for e in errs if not e[2]), default=0.0)
         check(len(errs) == n and fields[key]["max_abs_err"] <= TOL[torch.bfloat16],
               f"{name} differs from its plain version on the same inputs: {fields[key]}")
+    fields.update(_dispatch_fields(same_input, n_k5))
     return fields
 
 
@@ -2103,8 +2209,12 @@ def phase_serve_moe(dev):
     is held is every K3 and K2 call of the kernels' prefill and 8 decode
     steps against its plain version on the same inputs (``k3_same_input``,
     ``k2_same_input``: max |difference| within the kernels' bf16 tolerance,
-    and the share of entries that differ), the decode argmax against the
-    served tokens, and the main path's checks. Also reported: the relative
+    and the share of entries that differ), every K5 call of those steps
+    (``k5_same_input``) and of the served requests (``k5_same_input_served``:
+    one a launch, at every prompt length served) equal to its plain
+    version on the same inputs, the decode argmax against the served
+    tokens, and the main path's checks. The plain path runs K5's plain
+    version too. Also reported: the relative
     difference of each layer's MoE input between the kernel path and the
     replayed plain path in the prefill (``moe_input_rel_err_by_layer``), the
     free-running plain prefill's logits error, the (layer, token, k) choices
@@ -2115,13 +2225,15 @@ def phase_serve_moe(dev):
     import repro_torch.models.transformer as transformer
     from repro_torch.configs import get_config
     from repro_torch.models import prefill
-    from repro_torch.models.moe import capacity, slot_positions
+    from repro_torch.kernels.moe_dispatch import slot_positions
+    from repro_torch.models.moe import capacity
 
     moe_cfg = get_config("olmoe-1b-7b")
     real_router = moe.router
     routes = []          # top_i of each router call on the kernel path, in order
     replayed = []        # the same, as the plain path consumed them
-    same_input = {}      # each K3 / K2 call against its plain version (_probing)
+    same_input = {}      # each K3 / K2 / K5 call against its plain version (_probing)
+    served = {}          # each K5 call of the served requests (_probing_dispatch)
     moe_inputs = {"kernel": [], "plain": []}     # each MoE layer's input, in order
 
     def recorder(into):
@@ -2160,7 +2272,7 @@ def phase_serve_moe(dev):
 
     @contextlib.contextmanager
     def plain_path():
-        with _plain_attention(), replaying(routes, replayed), \
+        with _plain_attention(), _plain_dispatch(), replaying(routes, replayed), \
                 moe_inputs_to(moe_inputs["plain"]):
             yield
 
@@ -2170,6 +2282,7 @@ def phase_serve_moe(dev):
         def rel(*ctxs, free=None):
             with contextlib.ExitStack() as stack:
                 stack.enter_context(_plain_attention())
+                stack.enter_context(_plain_dispatch())
                 stack.enter_context(recorder(free) if free is not None
                                     else replaying(routes[:L], []))
                 for c in ctxs:
@@ -2224,9 +2337,9 @@ def phase_serve_moe(dev):
 
     cfg, reqs, counts, fields = _serve(
         dev, "olmoe-1b-7b", plain_path,
-        ("relay_assemble", "flash_attention", "decode_attention"),
+        ("relay_assemble", "flash_attention", "decode_attention", "moe_dispatch"),
         decode_from_plain_prefill=False, compare=compare, kernel_path=kernel_path,
-        gate_logits=False)
+        gate_logits=False, served_path=lambda: _probing_dispatch(served))
     check(len(routes) == len(replayed) == cfg.n_layers * 9
           and all(a is b for a, b in zip(routes, replayed)),
           f"{len(routes)} routes recorded on the kernels' prefill and 8 decode steps, "
@@ -2234,13 +2347,19 @@ def phase_serve_moe(dev):
     fields["moe_input_rel_err_by_layer"] = [
         (a.float() - b.float()).norm().item() / b.float().norm().item()
         for a, b in zip(moe_inputs["kernel"][:cfg.n_layers], moe_inputs["plain"][:cfg.n_layers])]
-    fields.update(_same_input_fields(same_input, cfg.n_layers, cfg.n_layers * 8))
+    fields.update(_same_input_fields(same_input, cfg.n_layers, cfg.n_layers * 8,
+                                     cfg.n_layers * 9))
+    fields.update(_dispatch_fields(served, counts["moe_dispatch"], "k5_same_input_served"))
     new_tokens = sum(len(r.generated) - 1 for r in reqs)   # the first comes from prefill
     check(counts["flash_attention"] == cfg.n_layers * len(reqs)
           and counts["decode_attention"] == cfg.n_layers * new_tokens,
           f"K3 launched {counts['flash_attention']} times and K2 {counts['decode_attention']}: "
           f"want {cfg.n_layers} per prefill and per decode step")
     check(counts["ssd_chunk"] == 0, "K4 ran on a model with no SSM layer")
+    # every layer is MoE: one dispatch beside each K3 and each K2 launch
+    check(counts["moe_dispatch"] == counts["flash_attention"] + counts["decode_attention"],
+          f"K5 launched {counts['moe_dispatch']} times: want one per MoE layer of each "
+          f"prefill and decode step")
     report("serve-moe", **fields)
     return counts
 
@@ -2344,12 +2463,13 @@ def _dist_olmoe(dev, mesh):
           f"the cache layout ({kv_placed})")
     check(all(torch.isfinite(l).all().item() and l.shape == (1, cfg.vocab)
               for l in mesh_logits), "logits under the mesh are not finite (1, vocab)")
-    fields = _same_input_fields(same_input, cfg.n_layers, cfg.n_layers * 8)
+    fields = _same_input_fields(same_input, cfg.n_layers, cfg.n_layers * 8, cfg.n_layers * 9)
     check(counts["relay_assemble"] >= len(tree_leaves(host))
           and counts["flash_attention"] == cfg.n_layers
-          and counts["decode_attention"] == 8 * cfg.n_layers,
+          and counts["decode_attention"] == 8 * cfg.n_layers
+          and counts["moe_dispatch"] == 9 * cfg.n_layers,
           f"launches under the mesh {counts}: want K1 on every staged leaf, K3 "
-          f"{cfg.n_layers} and K2 {8 * cfg.n_layers}")
+          f"{cfg.n_layers}, K2 {8 * cfg.n_layers} and K5 {9 * cfg.n_layers}")
 
     # the staging again, into the allocator's cached blocks (not counted)
     del fetched
@@ -2557,8 +2677,9 @@ def phase_dist(dev):
     ``params_shardings`` (gated: every leaf bit-exact against the host
     copy, in the serving layout); under ``use_mesh`` a 512-token prefill
     and 8 greedy decode steps through the DTensor parameters (K3 and K2 on
-    each rank's local heads through ``shard_map``; every call held to its
-    plain version on the same inputs); the caches carried through
+    each rank's local heads and K5 on its local batch through
+    ``shard_map``; every call held to its plain version on the same
+    inputs); the caches carried through
     ``make_kv_fetch_step`` (gated bit-exact); then TinyLlama-1.1B takes one
     AdamW step on DTensor parameters (its loss held within 1e-3 relative of
     the step without a mesh); then Mamba2-370m under the mesh, counted

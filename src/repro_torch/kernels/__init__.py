@@ -8,8 +8,8 @@ one where the kernel is launched and nowhere else; K4 and K4b also count
 their launches by route (``ssd_chunk.route_launches``,
 ``ssd_chunk_bwd.route_launches``). K3 carries a gradient
 through ``FlashAttentionFn`` (its backward is K3b), K4 through
-``SSDChunkFn`` (its backward is K4b); a launch that autograd would record
-raises.
+``SSDChunkFn`` (its backward is K4b), K5 through ``MoEDispatchFn`` (its
+backward a plain gather); a launch that autograd would record raises.
 
   K1 ``relay_assemble``   <- repro/kernels/relay_copy/relay_copy.py
   K2 ``decode_attention`` <- repro/kernels/decode_attention/decode_attention.py
@@ -17,6 +17,7 @@ raises.
   K3b ``flash_attention_op_bwd`` <- none: XLA differentiates K3's JAX oracle
   K4 ``ssd_chunk``        <- repro/kernels/ssd_chunk/ssd_chunk.py
   K4b ``ssd_chunk_bwd``   <- none: XLA differentiates repro/models/ssm.py:ssd_chunked
+  K5 ``moe_dispatch``     <- none: XLA scatters repro/models/moe.py's capacity buffers
 """
 from typing import Dict
 
@@ -35,6 +36,13 @@ from .flash_attention import (
     flash_attention_op_bwd,
     flash_attention_op_ref,
     flash_attention_ref,
+)
+from .moe_dispatch import (
+    MoEDispatchFn,
+    moe_dispatch,
+    moe_dispatch_bwd,
+    moe_dispatch_op,
+    moe_dispatch_ref,
 )
 from .relay_copy import relay_assemble, relay_assemble_op, relay_assemble_ref
 from .ssd_chunk import (
@@ -58,6 +66,7 @@ KERNELS = {
     "flash_attention_op_bwd": flash_attention_op_bwd,
     "ssd_chunk": ssd_chunk,
     "ssd_chunk_bwd": ssd_chunk_bwd,
+    "moe_dispatch": moe_dispatch,
 }
 
 

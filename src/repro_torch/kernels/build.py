@@ -56,6 +56,7 @@ _SIGNATURES = {
     "ssd_chunk_bwd_launch": [_P] * 12 + [_I] * 9 + [_L] * 27 + [_P],
     "ssd_chunk_bwd_scratch_floats": [_I] * 8,
     "ssd_chunk_bwd_head_slices": [_I] * 6,
+    "moe_dispatch_launch": [_P] * 6 + [_I] * 9 + [_L] * 4 + [_P],
 }
 # every other entry point returns an int: an error code, or a count of head slices
 _RESTYPES = {"ssd_chunk_bwd_scratch_floats": _L, "flash_attention_bwd_scratch_floats": _L}

@@ -14,6 +14,12 @@ It computes the same function as the JAX module, drops included:
   contribution zeroed, so the scatter adds (the kept token there plus
   zeros) and the gather multiplies its read by ``keep = 0``.
 
+The slots and the scatter are the dispatch (``kernels/moe_dispatch``):
+on the card one hand-written kernel (K5), which copies each kept row into
+its slot and zeroes the empty ones, equal to the scatter-add wherever x is
+finite; on the CPU its plain version, the one-hot count and the
+accumulating ``index_put_``.
+
 The expert products stay PyTorch products, as the JAX package computes
 them with einsums outside any Pallas kernel. The buffers hold every
 expert, so a decode step (C = 1) reads every expert's weights.
@@ -33,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..distributed.sharding import P
+from ..kernels.moe_dispatch import moe_dispatch_op
 from ..obs import card
 from .layers import BATCH, MODEL, pspec, shard, shard_map
 
@@ -80,15 +87,6 @@ def capacity(S: int, cfg) -> int:
     return min(C, S * K)
 
 
-def slot_positions(top_i: torch.Tensor, n_experts: int) -> torch.Tensor:
-    """(B, S, K) slot of each assignment in its expert's buffer: the count
-    of earlier assignments to that expert in the row, token-major then k."""
-    B, S, K = top_i.shape
-    flat = F.one_hot(top_i, n_experts).reshape(B, S * K, n_experts)
-    prior = flat.cumsum(dim=1) - flat                         # exclusive count
-    return prior.gather(-1, top_i.reshape(B, S * K, 1)).reshape(B, S, K)
-
-
 def moe_ffn(params: Dict, x: torch.Tensor, cfg, *, return_aux: bool = False):
     """x: (B, S, d). SwiGLU experts over (B, E, C, d) capacity buffers; one
     span a stage on the card tracer (``obs.card``), timed on the card."""
@@ -98,14 +96,7 @@ def moe_ffn(params: Dict, x: torch.Tensor, cfg, *, return_aux: bool = False):
 
     def route(xl, w_router):
         top_p, top_i, probs = router({"router": w_router}, xl, cfg)
-        pos = slot_positions(top_i, E)
-        keep = (pos < C).to(xl.dtype)                         # capacity drop
-        pos_c = pos.clamp_max(C - 1)
-        # Scatter into the buffers; a dropped assignment adds zeros at C-1.
-        bidx = torch.arange(xl.shape[0], device=xl.device)[:, None, None].expand_as(top_i)
-        contrib = xl[:, :, None, :] * keep[..., None]         # (B, S, K, d)
-        buffers = torch.zeros((xl.shape[0], E, C, d), dtype=xl.dtype, device=xl.device)
-        buffers.index_put_((bidx, top_i, pos_c), contrib, accumulate=True)
+        buffers, pos_c, keep = moe_dispatch_op(xl, top_i, E, C)
         return buffers, top_p * keep, top_i, pos_c, probs, _chosen_share(top_i, E)
 
     def experts(buffers, w_gate, w_up, w_down):

@@ -15,6 +15,8 @@ Tolerances: bf16 2e-2 (one bf16 ulp of the output), fp32 1e-4 with TF32
 off (another summation order), bit-exact for copies.
 """
 import dataclasses
+from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -38,6 +40,8 @@ from repro_torch.kernels import (
     flash_attention_op_bwd,
     flash_attention_op_ref,
     flash_attention_ref,
+    moe_dispatch,
+    moe_dispatch_ref,
     relay_assemble,
     relay_assemble_op,
     relay_assemble_ref,
@@ -58,7 +62,8 @@ from repro_torch.models import (
     prefill,
     router,
 )
-from repro_torch.models.moe import capacity, slot_positions
+from repro_torch.kernels.moe_dispatch import slot_positions
+from repro_torch.models.moe import capacity, top_k
 from repro_torch.tree import tree_leaves, tree_map
 
 pytestmark = pytest.mark.cuda
@@ -497,6 +502,89 @@ def test_card_tracer_times_the_moe_stages_on_the_card(dev):
     assert all(t > 0 for t in stages)
     assert sum(stages) <= start.elapsed_time(end) / 1e3 + 2e-6     # 0.5 us a reading
     assert "device_s" not in rows["mma.moe"].args
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+# (B, S) with a row width each that takes another vector: 16-byte (2048 in
+# either dtype, 100 in fp32), 8-byte (100 bf16, 6 fp32), 4-byte (6 bf16, 3
+# fp32) and 2-byte (3 bf16) copies
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+@pytest.mark.parametrize("E,K", [(64, 8), (16, 2), (128, 1), (4, 2)])
+@pytest.mark.parametrize("B,S,d", [(1, 1, 2048), (2, 7, 6), (3, 300, 100), (1, 512, 3),
+                                   (1, 3328, 2048)])
+def test_moe_dispatch_matches_plain(dev, B, S, d, E, K, cf, dtype):
+    """The dispatch kernel (K5) against its plain version: the buffers, the
+    clamped slots and keep equal (torch.equal), drops included, every 5th
+    token zero (its router probabilities tie, so it takes the lowest
+    experts), top_i in top-k's strides; the same bits on a second call."""
+    g = torch.Generator(device=dev).manual_seed(S + E)
+    x = torch.randn(B, S, d, device=dev, generator=g).to(dtype)
+    x[:, ::5] = 0
+    w = torch.randn(d, E, device=dev, generator=g)
+    top_i = top_k(torch.softmax(x.float() @ w, dim=-1), K)[1]
+    C = capacity(S, SimpleNamespace(top_k=K, n_experts=E, capacity_factor=cf))
+    before = moe_dispatch.launches
+    got = moe_dispatch(x, top_i, E, C)
+    again = moe_dispatch(x, top_i, E, C)
+    assert moe_dispatch.launches == before + 2
+    want = moe_dispatch_ref(x, top_i, E, C)
+    for a, b, c in zip(got, want, again):
+        assert a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+        assert _same_bits(a, c)
+    if cf == 0.5 and S > 1:             # fewer slots than assignments, or zero tokens collide
+        assert (want[2] == 0).any(), "no assignment was dropped"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_gradient_through_the_dispatch_kernel_matches_plain(dev, dtype):
+    """x's gradient through moe_ffn on the card, the dispatch kernel's
+    backward (MoEDispatchFn) against autograd through the plain dispatch on
+    the card: the same output and gradient (torch.equal)."""
+    import repro_torch.models.moe as moe
+
+    cfg, p, x = _olmoe_experts(300)
+    gp = {k: t.to(dev, dtype) for k, t in p.items()}
+    gx = x.to(dev, dtype)
+    dy = torch.randn(gx.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+
+    def run():
+        leaf = gx.clone().requires_grad_(True)
+        y = moe_ffn(gp, leaf, cfg)
+        return y, torch.autograd.grad(y, leaf, dy.to(dtype))[0]
+
+    before = moe_dispatch.launches
+    y, dx = run()
+    assert moe_dispatch.launches == before + 1
+    with mock.patch.object(moe, "moe_dispatch_op", moe_dispatch_ref):
+        y0, dx0 = run()
+    assert moe_dispatch.launches == before + 1
+    assert torch.equal(y, y0) and torch.equal(dx, dx0)
+    assert torch.isfinite(dx).all() and dx.abs().max() > 0
+
+
+def test_olmoe_prefill_on_the_card_goes_through_the_dispatch_kernel(dev):
+    """A bf16 prefill of the reduced OLMoE on the card launches the dispatch
+    kernel once an MoE layer and gives the logits of the plain dispatch
+    (torch.equal)."""
+    import repro_torch.models.moe as moe
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b").reduced(), dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    toks = torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, (2, 40))).long().to(dev)
+    n_moe = sum(i % cfg.moe_every == cfg.moe_offset for i in range(cfg.n_layers))
+    before = moe_dispatch.launches
+    logits = prefill(params, toks, cfg, max_len=48)[0]
+    assert n_moe > 0 and moe_dispatch.launches == before + n_moe
+    with mock.patch.object(moe, "moe_dispatch_op", moe_dispatch_ref):
+        plain = prefill(params, toks, cfg, max_len=48)[0]
+    assert moe_dispatch.launches == before + n_moe
+    assert logits.dtype == torch.bfloat16 and torch.equal(logits, plain)
 
 
 def test_reduced_olmoe_on_the_card_matches_cpu(dev):

@@ -8,6 +8,10 @@ Inputs are made with numpy from a seed and handed to both packages.
 Tolerances: 2e-5 in fp32 (summation order), 2e-2 in bf16 (one bf16 ulp
 of the output), bit-exact for the relay copy.
 """
+import ctypes
+import re
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,7 +30,10 @@ from repro_torch.kernels.decode_attention.decode_attention import (
     cluster_plan,
     split_range,
 )
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.flash_attention import block_order
+from repro_torch.kernels.moe_dispatch.moe_dispatch import MAX_TILES, THREADS
+from repro_torch.kernels.moe_dispatch.moe_dispatch import tiles as dispatch_tiles
 from repro_torch.kernels.ssd_chunk.ssd_chunk import (
     launch as ssd_launch,
     route as ssd_route,
@@ -40,12 +47,17 @@ from repro_torch.kernels import (
     flash_attention_op,
     flash_attention_ref,
     launch_counts,
+    MoEDispatchFn,
+    moe_dispatch,
+    moe_dispatch_bwd,
+    moe_dispatch_ref,
     relay_assemble,
     relay_assemble_ref,
     ssd_chunk,
     ssd_chunk_bwd,
     ssd_chunk_op,
 )
+from repro_torch.models.moe import capacity, top_k
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -256,7 +268,73 @@ def test_cpu_wrappers_run_plain_versions_and_count_no_launch():
     perm = torch.tensor([2, 0, 1], dtype=torch.int32)
     s = torch.arange(12.0).reshape(3, 4)
     assert torch.equal(relay_assemble(s, perm), relay_assemble_ref(s, perm))
+    x, top_i = _dispatch_inputs(torch.float32)
+    for got, want in zip(moe_dispatch(x, top_i, 8, 5), moe_dispatch_ref(x, top_i, 8, 5)):
+        assert torch.equal(got, want)
     assert launch_counts() == before
+
+
+def _dispatch_inputs(dtype, B=2, S=40, d=24, E=8, K=2):
+    """Tokens and their top-K experts; every 5th token is zero, so its
+    router probabilities tie and it takes the lowest experts (drops)."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((B, S, d), np.float32)).to(dtype)
+    x[:, ::5] = 0
+    w = torch.from_numpy(rng.standard_normal((d, E), np.float32))
+    return x, top_k(torch.softmax(x.float() @ w, dim=-1), K)[1]
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_dispatch_gradient_is_autograd_through_the_plain_version(dtype, cf):
+    """``moe_dispatch_bwd`` (MoEDispatchFn's backward on the card) gives x
+    the gradient autograd takes through the plain scatter, bit for bit,
+    drops included; MoEDispatchFn on the CPU returns the plain outputs, and
+    pos_c and keep carry no gradient."""
+    B, S, d, E, K = 2, 40, 24, 8, 2
+    x, top_i = _dispatch_inputs(dtype, B, S, d, E, K)
+    C = capacity(S, SimpleNamespace(top_k=K, n_experts=E, capacity_factor=cf))
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal((B, E, C, d), np.float32))
+    g = g.to(dtype)
+    leaf = x.clone().requires_grad_(True)
+    buffers, pos_c, keep = moe_dispatch_ref(leaf, top_i, E, C)
+    (want,) = torch.autograd.grad(buffers, leaf, g)
+    assert (keep == 0).any(), "no assignment was dropped"
+    assert torch.equal(moe_dispatch_bwd(g, top_i, pos_c, keep), want)
+    leaf = x.clone().requires_grad_(True)
+    got = MoEDispatchFn.apply(leaf, top_i, E, C)
+    for a, b in zip(got, (buffers, pos_c, keep)):
+        assert torch.equal(a, b)
+    assert not (got[1].requires_grad or got[2].requires_grad)
+    assert torch.equal(torch.autograd.grad(got[0], leaf, g)[0], want)
+
+
+@pytest.mark.parametrize("S,K", [(1, 8), (7, 8), (3328, 8), (8192, 8), (8193, 8),
+                                 (300, 2), (3328, 1), (5, 512), (100_000, 64)])
+def test_moe_dispatch_tiles_cover_each_token_once(S, K):
+    """The dispatch's tiles: consecutive runs of ``tile`` tokens, the last
+    ragged, covering the row once; one ranking pass of assignments (at least
+    one token) unless the row would take more than MAX_TILES tiles."""
+    tile, n = dispatch_tiles(S, K)
+    assert tile >= 1 and (n - 1) * tile < S <= n * tile
+    assert n <= MAX_TILES
+    if S <= MAX_TILES * max(1, THREADS // K):
+        assert tile == max(1, THREADS // K)
+
+
+@pytest.mark.parametrize("name", sorted(build._SIGNATURES))
+def test_kernel_entry_points_match_their_c_prototypes(name):
+    """Each ctypes signature in ``build._SIGNATURES`` has the C entry
+    point's parameters, in order: a pointer as c_void_p, ``int``,
+    ``long long`` and ``float`` as themselves. A miscount shifts every
+    later argument, which nothing on the CPU would see."""
+    src = "\n".join(p.read_text() for p in sorted(build.CSRC.glob("*.cu")))
+    m = re.search(r'extern "C" [\w ]+?\b' + name + r"\s*\((.*?)\)\s*\{", src, re.S)
+    assert m, f"no extern \"C\" {name} in csrc/"
+    scalar = {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}
+    params = [re.sub(r"\s*\b\w+$", "", p.strip()) for p in m.group(1).split(",")]
+    assert [ctypes.c_void_p if "*" in t else scalar[t.replace("const ", "").strip()]
+            for t in params] == build._SIGNATURES[name]
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +380,9 @@ def test_flash_block_order_visits_every_tile_once(n_qt, H, B):
 @pytest.mark.parametrize("case", ["dtype", "group", "head_dim", "layout", "perm",
                                   "ssd_dtype", "ssd_group", "mixed_dtype",
                                   "decode_mixed_dtype", "decode_head_dim",
-                                  "decode_kv_len_shape"])
+                                  "decode_kv_len_shape", "dispatch_experts",
+                                  "dispatch_no_experts", "dispatch_index_dtype",
+                                  "dispatch_dtype", "dispatch_shape", "dispatch_capacity"])
 def test_wrappers_reject_what_the_kernels_do_not_take(case):
     q = torch.zeros(1, 4, 8, 16)
     k = torch.zeros(1, 2, 8, 16)
@@ -334,6 +414,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(case):
         elif case == "ssd_group":       # 3 B/C groups do not divide 4 heads
             ssd_chunk_op(torch.zeros(1, 8, 4, 2), torch.zeros(1, 8, 4),
                          torch.zeros(1, 8, 3, 4), torch.zeros(1, 8, 3, 4), 8)
+        elif case.startswith("dispatch"):
+            x, top_i, E, C = torch.zeros(1, 4, 8), torch.zeros(1, 4, 2, dtype=torch.long), 4, 2
+            if case == "dispatch_experts":       # past the kernel's 512
+                E = 513
+            elif case == "dispatch_no_experts":
+                E = 0
+            elif case == "dispatch_index_dtype":  # top-k's indices are int64
+                top_i = top_i.int()
+            elif case == "dispatch_dtype":
+                x = x.double()
+            elif case == "dispatch_shape":        # a top_i for 5 tokens
+                top_i = torch.zeros(1, 5, 2, dtype=torch.long)
+            else:                                 # no slot for 8 assignments
+                C = 0
+            moe_dispatch(x, top_i, E, C)
         else:
             relay_assemble(torch.zeros(3, 4), torch.tensor([0, 1, 2]))
 

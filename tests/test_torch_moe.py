@@ -37,7 +37,8 @@ from repro_torch.models import (
     router,
 )
 import repro_torch.models.moe as moe
-from repro_torch.models.moe import capacity, slot_positions
+from repro_torch.kernels.moe_dispatch import slot_positions
+from repro_torch.models.moe import capacity
 from repro_torch.serving import FunctionalServer
 
 CPU = torch.device("cpu")

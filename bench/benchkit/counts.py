@@ -50,22 +50,29 @@ def moe_bytes(S: int, z: Sizes) -> float:
     return 2 * 3 * E * d * f + 4 * d * E + 2 * 2 * S * d
 
 
+def window_pairs(S: int, W: int) -> float:
+    """(query, key) pairs of a causal self-attention over S positions in
+    which each query sees itself and the W - 1 keys before it."""
+    if S <= W:
+        return S * (S + 1) / 2
+    return W * (W + 1) / 2 + (S - W) * W
+
+
 def prefill_flops(S: int, z: Sizes) -> float:
-    """A prefill of S tokens that emits one token: every layer over the S
-    positions, the head at the last one."""
-    d, L, V = z["d_model"], z["n_layers"], z["vocab"]
-    per_layer = 0.0
-    if z.get("n_heads"):
-        H, G, D = z["n_heads"], z["n_kv_heads"], z["hd"]
-        per_layer += 2 * S * d * (H * D + 2 * G * D) + 2 * S * H * D * d
-        per_layer += attention_flops(1, H, S, S, D)
-    if z.get("ssm_state"):
-        di, h, p, n, g, w = (z["ssm_d_inner"], z["ssm_heads"], z["ssm_head_dim"],
-                             z["ssm_state"], z["ssm_groups"], z["conv_width"])
-        per_layer += 2 * S * d * (2 * di + 2 * g * n + h) + 2 * S * w * (di + 2 * g * n)
-        per_layer += ssd_flops(1, S, h, p, g, n, int(z["ssm_chunk"])) + 2 * S * di * d
-    if z.get("n_experts"):
-        per_layer += moe_flops(S, z)
-    elif z.get("d_ff"):
-        per_layer += 2 * S * 3 * d * z["d_ff"]
-    return L * per_layer + 2 * d * V
+    """A prefill of S tokens that emits one token, layer by layer over
+    ``z["plan"]``: each layer's weight products over the S positions (its
+    ``macs``), the attention pairs on ``attn`` layers (within the window
+    where ``attn_window`` > 0) and the SSD scan on ``ssm`` layers; then the
+    head at the last position."""
+    d, V = z["d_model"], z["vocab"]
+    total = 2 * d * V
+    for layer in z["plan"]:
+        total += 2 * S * layer["macs"]
+        if layer["mixer"] == "attn":
+            H, D, W = z["n_heads"], z["hd"], z.get("attn_window", 0)
+            total += (4.0 * H * D * window_pairs(S, W) if W
+                      else attention_flops(1, H, S, S, D))
+        elif layer["mixer"] == "ssm":
+            total += ssd_flops(1, S, z["ssm_heads"], z["ssm_head_dim"], z["ssm_groups"],
+                               z["ssm_state"], int(z["ssm_chunk"]))
+    return total

@@ -57,8 +57,7 @@ class Driver:
     def __init__(self, ctx) -> None:
         self.ctx = ctx
         self.traffic = Traffic(ctx.mix, ctx.seed, ctx.cfg.vocab)
-        self.params = weights.make(ctx.cfg, ctx.seed, ctx.init_range, ctx.device)
-        ctx.check_layout(self.params)
+        self.params = weights.make(ctx.cfg, ctx.seed, ctx.init_range, ctx.device, ctx.init)
         self.instance_seeds = [ctx.seed]
 
     def warm_up(self) -> None:

@@ -37,8 +37,7 @@ class Driver:
         self.engine = make_functional_engine(devices, MMAConfig(**ctx.conf["mma"]))
         self.wms, self.servers = [], []
         for k, s in enumerate(self.instance_seeds):
-            params = weights.make(ctx.cfg, s, ctx.init_range, ctx.device)
-            ctx.check_layout(params)
+            params = weights.make(ctx.cfg, s, ctx.init_range, ctx.device, ctx.init)
             self.wms.append(WeightManager(self.engine, params=params))
             self.servers.append(_server(ctx, params))
             del params
@@ -132,7 +131,7 @@ class Driver:
         for k, (wm, s) in enumerate(zip(self.wms, self.instance_seeds)):
             tree = wm.params if wm.state == "awake" else wm._host_copy
             bad += len(weights.same_bits(tree, ctx.cfg, s, ctx.init_range, ctx.device,
-                                         load=lambda t: t.to(ctx.device)))
+                                         load=lambda t: t.to(ctx.device), init=ctx.init))
         return {"weight_leaves_differ": float(bad)}
 
     def free(self) -> None:

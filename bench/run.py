@@ -33,13 +33,11 @@ import os  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
+from benchkit import BenchError  # noqa: E402  (bench/, the script's directory, is on the path)
+
 ROOT = Path(__file__).resolve().parents[1]
 BENCH = ROOT / "bench"
 BANNED = frozenset({"jax", "jaxlib", "flax", "repro"})
-
-
-class BenchError(Exception):
-    """A run that cannot report: it exits non-zero and prints no result."""
 
 
 def prepare_environment() -> None:
@@ -121,11 +119,16 @@ def port_config(conf: dict, override=None):
 
 
 def sizes_of(cfg) -> dict:
-    names = ("n_layers", "d_model", "n_heads", "n_kv_heads", "hd", "d_ff", "vocab",
-             "n_experts", "top_k", "capacity_factor", "norm_eps", "rope_theta",
-             "ssm_state", "ssm_head_dim", "ssm_heads", "ssm_d_inner", "ssm_groups",
-             "ssm_chunk", "conv_width")
-    return {n: getattr(cfg, n) for n in names}
+    """The port's ``ModelConfig`` as plain values, for the references and
+    the metric readers: every field (``dtype`` by its name, such as
+    ``bfloat16``), the sizes it derives (``hd``, ``ssm_heads``,
+    ``ssm_d_inner``), and ``plan``, one entry per layer (``weights.plan``)."""
+    from benchkit import weights
+
+    out = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    out.update(dtype=str(cfg.dtype).removeprefix("torch."), hd=cfg.hd,
+               ssm_heads=cfg.ssm_heads, ssm_d_inner=cfg.ssm_d_inner, plan=weights.plan(cfg))
+    return out
 
 
 @dataclasses.dataclass
@@ -137,13 +140,8 @@ class Ctx:
     sizes: dict
     device: object
     init_range: float
+    init: dict                   # the configuration file's own weight rules
     max_len: int
-
-    def check_layout(self, tree) -> None:
-        from benchkit import weights
-        from repro_torch.models import abstract_params
-
-        weights.check_layout(tree, abstract_params(self.cfg))
 
 
 def run_cell(workload: str, seed: int, seconds: float, traced: bool, device,
@@ -172,7 +170,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device,
     device = torch.device(device)
     ctx = Ctx(seed=seed, conf=conf, mix=mix, cfg=cfg,
               sizes=sizes_of(cfg), device=device, init_range=float(conf["initializer_range"]),
-              max_len=int(conf["max_len"]))
+              init=conf.get("init", {}), max_len=int(conf["max_len"]))
     metrics = [(m, load_file(BENCH / "metrics" / f"{m['name']}.py", f"metric_{i}"))
                for i, m in enumerate(cell_metrics(bench, workload, traced))]
     targets = sorted({t for _, mod in metrics for t in mod.WRAPS})
@@ -220,7 +218,7 @@ def run_cell(workload: str, seed: int, seconds: float, traced: bool, device,
         torch.cuda.empty_cache()
     ref = check.reference_gaps(
         ctx, sample,
-        lambda inst: weights.make(cfg, seeds[inst], ctx.init_range, device),
+        lambda inst: weights.make(cfg, seeds[inst], ctx.init_range, device, ctx.init),
         control=control)
     numbers["logit_gap"] = max(ref["gaps"]) if ref["gaps"] else float("inf")
     numbers["logit_err"] = max(ref["errs"]) if ref["errs"] else float("inf")

@@ -12,11 +12,17 @@ from benchkit.trace import Calls, Summary, span_name
 
 METRICS = Path(__file__).resolve().parents[1] / "metrics"
 S = 3232
+# a layer's macs: q, k, v and o, the router, and top-8 of 64 SwiGLU experts
 OLMOE = dict(n_layers=16, d_model=2048, n_heads=16, n_kv_heads=16, hd=128, d_ff=1024,
-             vocab=50304, n_experts=64, top_k=8, ssm_state=0)
+             vocab=50304, n_experts=64, top_k=8, ssm_state=0,
+             plan=[dict(mixer="attn", channel="moe",
+                        macs=2048 * 6144 + 2048 * 2048 + 2048 * 64 + 8 * 3 * 2048 * 1024)] * 16)
+# z, x, B, C and dt in; the three depthwise convolutions; out
 MAMBA2 = dict(n_layers=48, d_model=1024, n_heads=0, vocab=50280, n_experts=0, d_ff=0,
               ssm_state=128, ssm_head_dim=64, ssm_heads=32, ssm_d_inner=2048,
-              ssm_groups=1, ssm_chunk=256, conv_width=4)
+              ssm_groups=1, ssm_chunk=256, conv_width=4,
+              plan=[dict(mixer="ssm", channel="none",
+                         macs=1024 * 4384 + 4 * 2304 + 2048 * 1024)] * 48)
 
 
 def metric(name):
